@@ -1,4 +1,4 @@
-"""fsgm_tpu — TPU-native SGM stereo and fSGM optical flow.
+"""fsgm_tpu — SGM stereo and fSGM optical flow in JAX.
 
 Public API:
 
@@ -7,12 +7,12 @@ Public API:
     disp = stereo_sgm(img_l, img_r, SGMParams(max_disp=128))
     flow = flow_fsgm(img1, img2, FlowParams(search_radius=4, levels=4))
 
-Distribution (multi-chip / multi-host):
+Distribution (multi-device / multi-host):
 
     from fsgm_tpu.parallel import (stereo_sgm_sharded, flow_fsgm_sharded,
                                    stereo_sgm_dsharded)
 
-See README.md for the architecture and PARITY.md for the capability map.
+See README.md for the architecture and PERF.md for measurements.
 """
 
 from fsgm_tpu.params import (SGMParams, FlowParams, DistParams, DIRS_8,

@@ -115,10 +115,9 @@ def _smooth_texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
 
 
 def fractional_shift_stereo(h: int, w: int, disp: float, seed: int = 0):
-    """Stereo pair with a constant NON-INTEGER disparity (round-5 fixture:
-    every other stereo fixture uses integer shifts, so the quadratic
-    subpixel stage was only ever parity-tested, never shown to help —
-    VERDICT r4 missing #4).
+    """Stereo pair with a constant NON-INTEGER disparity: every other
+    stereo fixture uses integer shifts, so without it the quadratic
+    subpixel stage would only be parity-tested, never shown to help.
 
     left(x) = texture(x), right(x) = texture(x + disp) sampled
     bilinearly from a band-limited texture, so C[y,x,d]=cost(L(x),R(x-d))

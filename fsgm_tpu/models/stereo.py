@@ -3,9 +3,10 @@
 `stereo_sgm(imL, imR, params)` — the L5 API entry.  `params` is static
 (hashable frozen dataclass) so each config compiles once.
 
-Backend selection: 'xla' uses the lax.scan aggregation (always correct,
-any platform); 'pallas' uses the fused speed-of-light kernels from
-ops/pallas/ (TPU).  Both are exact-integer and bit-identical through S.
+Backend selection (fsgm_tpu.backend): 'xla' runs the `lax.scan`
+aggregation (ops/aggregate.py); 'triton' the Pallas path-line kernel
+(ops/aggregate_triton.py).  Both are exact-integer and bit-identical
+through S.
 """
 
 from __future__ import annotations
@@ -15,144 +16,29 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from fsgm_tpu.backend import aggregate, resolve_backend
 from fsgm_tpu.params import SGMParams
 from fsgm_tpu.ops.census import census_transform
 from fsgm_tpu.ops.cost import cost_volume_stereo, cost_volume_stereo_right
-from fsgm_tpu.ops import aggregate as agg
 from fsgm_tpu.ops import extract as ext
 
 
-def resolve_backend(backend: str) -> str:
-    """'pallas' resolves to the transposed-layout kernels ('pallas_tr',
-    the round-2 second-generation backend — labels on sublanes, ~1.5x;
-    see ops/pallas/aggregate_tr.py) unless FSGM_TR=0 pins the original
-    lane-major kernels."""
-    import os
-    if backend == "pallas" and os.environ.get("FSGM_TR", "1") != "0":
-        return "pallas_tr"
-    return backend  # explicit 'pallas_tr' / 'xla' pass through untouched
-
-
+@jax.named_scope("aggregate")
 def _aggregate(cost: jnp.ndarray, img: jnp.ndarray, params: SGMParams,
                backend: str) -> jnp.ndarray:
-    if backend == "pallas":
-        from fsgm_tpu.ops.pallas import aggregate_pallas
-        return aggregate_pallas.aggregate_paths(
-            cost, img, params.dirs, params.p1, params.p2,
-            params.adaptive_p2, s_max=params.s_invalid)
-    return agg.aggregate_paths(cost, img, params.dirs, params.p1,
-                               params.p2, params.adaptive_p2)
-
-
-def _s_volume_tr(cen_l: jnp.ndarray, cen_r: jnp.ndarray, img: jnp.ndarray,
-                 params: SGMParams, right_reference: bool = False,
-                 major_out: bool = False,
-                 pair_out: bool = False) -> jnp.ndarray:
-    """S via the transposed-layout sweeps: label-major cost volumes built
-    directly in each family's scan layout (no lane-major volume ever
-    materializes).  major_out=True keeps S in (H, L, W) for the
-    label-major extraction path (no merge transposes)."""
-    import os
-    from fsgm_tpu.ops.cost import (cost_volume_stereo_major,
-                                   cost_volume_stereo_major_cols)
-    from fsgm_tpu.ops.pallas import aggregate_tr
-    if pair_out and os.environ.get("FSGM_COST_KERNEL", "1") != "0":
-        # round-4: Pallas cost builder (ops/pallas/cost_tr.py) — the
-        # trace showed the XLA build (128-way concat at 134 GB/s + 15
-        # hamming fusions + transpose + pad) at ~29% of device time.
-        # NOTE: FSGM_COST_KERNEL (like FSGM_COST_HLW below and
-        # FSGM_TR_FRESH) is read at TRACE time and is not a jit cache
-        # key — A/B runs need a fresh process per setting
-        # (aggregate_tr.fold_max_lanes documents the shared caveat).
-        # cost_volume_wlh's incremental sublane shear emits the padded
-        # column-scan volume in ~0.1 ms/frame; the row-scan volume is
-        # ONE u8 transpose of it (the roll-shear cost_volume_hlw kernel
-        # measured 26 ms/dispatch vs ~6 for wlh+transpose —
-        # FSGM_COST_HLW=kernel pins it for A/B).  The whole vertical
-        # pipeline then runs ROW- and LANE-padded (H', L, W'): pad cost
-        # is neutral zero (sweeps cross it exactly / per-lane isolation
-        # — same argument as the horizontal pads), the vertical sweeps
-        # get rb=8 row blocks, and kernel extraction slices rows/lanes
-        # back (h_true/w_true).
-        from fsgm_tpu.ops.pallas import cost_tr
-        # lane/scan pad >= the largest |dx| in the direction set enables
-        # the sweeps' mask-free shifted directions (aggregate_tr round
-        # 5); BOTH cost kernels emit the padded width directly — the
-        # downstream XLA pad pass cost 3.2 ms/frame at 4K
-        w_img = img.shape[1]
-        max_dx = max(abs(dx) for _dy, dx in params.dirs)
-        pad8 = lambda n: -(-n // 8) * 8                  # noqa: E731
-        pad_w = pad8(w_img if pad8(w_img) - w_img >= max_dx
-                     else w_img + max_dx)
-        cost_wlh = cost_tr.cost_volume_wlh(
-            cen_l, cen_r, params.max_disp, params.invalid_cost,
-            right_reference, pad_w=pad_w)
-        # 'stride' default (round 5): the row-scan volume from one
-        # strided-roll shear per row — measured 5.41/5.37 vs 5.77-6.19
-        # ms/frame for the u8-transpose derivation (back-to-back KITTI
-        # batch-16, 2026-08-20), deleting the 2.1 ms/dispatch cost
-        # transpose the r4 trace flagged.  The r4 'kernel' binary shear
-        # (26 ms/dispatch) stays for A/B; 'transpose' pins the XLA copy.
-        hlw_mode = os.environ.get("FSGM_COST_HLW", "stride")
-        if hlw_mode in ("kernel", "stride") and not right_reference:
-            cost_hlw = cost_tr.cost_volume_hlw(
-                cen_l, cen_r, params.max_disp, params.invalid_cost,
-                right_reference, strided=hlw_mode == "stride",
-                pad_w=pad_w)
-        else:
-            cost_hlw = jnp.transpose(cost_wlh, (2, 1, 0))
-        hp, wp = cost_hlw.shape[0], cost_hlw.shape[2]
-        img_p = jnp.pad(img, ((0, hp - img.shape[0]),
-                              (0, wp - img.shape[1])), mode="edge")
-        # FSGM_TR_MASKFREE=0 pins the masked rolls for A/B (trace-time
-        # read — fresh process per setting, see fold_max_lanes)
-        mask_free = (wp - w_img >= max_dx
-                     and os.environ.get("FSGM_TR_MASKFREE", "1") != "0")
-        return aggregate_tr.aggregate_paths_tr(
-            cost_hlw, img_p, params.dirs, params.p1, params.p2,
-            params.adaptive_p2, s_max=params.s_invalid,
-            cost_wlh=cost_wlh, major_out=major_out, pair_out=pair_out,
-            w_true=w_img if mask_free else None)
-    cost_hlw = cost_volume_stereo_major(cen_l, cen_r, params.max_disp,
-                                        params.invalid_cost,
-                                        right_reference)
-    if os.environ.get("FSGM_TR_COSTT", "1") == "0":
-        # pinned A/B variant: a second independent direct build of the
-        # column-scan layout.  Measured LOSS on the real TPU (2026-08-19,
-        # batch-16 KITTI): 13.77 ms/frame vs 11.89-12.12 with the
-        # transpose derivation — one u8 XLA transpose of the row-scan
-        # volume beats re-running census-XOR-popcount in the transposed
-        # access pattern by ~1.7 ms/frame.
-        cost_wlh = cost_volume_stereo_major_cols(
-            cen_l, cen_r, params.max_disp, params.invalid_cost,
-            right_reference)
-    else:
-        cost_wlh = None  # aggregate_paths_tr derives it by transpose
-    return aggregate_tr.aggregate_paths_tr(
-        cost_hlw, img, params.dirs, params.p1, params.p2,
-        params.adaptive_p2, s_max=params.s_invalid, cost_wlh=cost_wlh,
-        major_out=major_out, pair_out=pair_out)
+    return aggregate(cost, img, params.dirs, params.p1, params.p2,
+                     params.adaptive_p2, backend, s_max=params.s_invalid)
 
 
 def compute_s_volume(img_l: jnp.ndarray, img_r: jnp.ndarray,
                      params: SGMParams, backend: str = "xla") -> jnp.ndarray:
     """census -> cost -> aggregated S volume (H, W, D)."""
-    cen_l = census_transform(img_l, params.census_window)
-    cen_r = census_transform(img_r, params.census_window)
-    if backend == "pallas_tr":
-        return _s_volume_tr(cen_l, cen_r, img_l, params)
-    if backend == "pallas":
-        import os
-        if os.environ.get("FSGM_PALLAS_COST", "0") == "1":
-            # the shear kernel measures ~equal in isolation but costs
-            # ~3 ms/frame end-to-end (breaks an XLA fusion/layout chain);
-            # opt-in for study, XLA builder by default
-            from fsgm_tpu.ops.pallas import cost_pallas
-            cost = cost_pallas.cost_volume_stereo(
-                cen_l, cen_r, params.max_disp, params.invalid_cost)
-            return _aggregate(cost, img_l, params, backend)
-    cost = cost_volume_stereo(cen_l, cen_r, params.max_disp,
-                              params.invalid_cost)
+    with jax.named_scope("census"):
+        cen_l = census_transform(img_l, params.census_window)
+        cen_r = census_transform(img_r, params.census_window)
+    with jax.named_scope("cost"):
+        cost = cost_volume_stereo(cen_l, cen_r, params.max_disp,
+                                  params.invalid_cost)
     return _aggregate(cost, img_l, params, backend)
 
 
@@ -162,28 +48,21 @@ def right_disparity_reagg(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
     """True LR re-aggregation (SURVEY.md §7.1 M3): full SGM over the
     right-reference cost volume guided by the right image, then WTA.
     Exact LR symmetry at 2x aggregation cost (vs the S-volume trick)."""
-    if backend == "pallas_tr":
-        return ext.wta_major(_s_volume_tr(cen_l, cen_r, img_r, params,
-                                          right_reference=True,
-                                          major_out=True))
-    cost_r = cost_volume_stereo_right(cen_l, cen_r, params.max_disp,
-                                      params.invalid_cost)
+    with jax.named_scope("cost"):
+        cost_r = cost_volume_stereo_right(cen_l, cen_r, params.max_disp,
+                                          params.invalid_cost)
     s_r = _aggregate(cost_r, img_r, params, backend)
-    return ext.wta(s_r)
+    with jax.named_scope("extract"):
+        return ext.wta(s_r)
 
 
+@jax.named_scope("extract")
 def extract_disparity(s: jnp.ndarray, params: SGMParams,
-                      backend: str = "xla",
                       d_right: jnp.ndarray | None = None) -> jnp.ndarray:
     """S volume -> final disparity field (float32, INVALID=-1).
 
     d_right: precomputed right-view integer disparity (lr_mode='reagg');
     None -> the S-volume trick d_R(y,x) = argmin_d S(y, x+d, d)."""
-    # XLA handles WTA + the one-hot subpixel selects well (~0.9 ms/frame
-    # at KITTI size once gathers are avoided); the experimental fused
-    # Pallas kernel (ops/pallas/extract_pallas.py) measured 4x slower
-    # on this toolchain, so it stays opt-in for study only.
-    del backend
     d_int = ext.wta(s)
     disp = d_int.astype(jnp.float32)
     if params.subpixel:
@@ -200,320 +79,41 @@ def extract_disparity(s: jnp.ndarray, params: SGMParams,
     return disp
 
 
-def extract_disparity_kernel(s_major: jnp.ndarray, params: SGMParams,
-                             d_right: jnp.ndarray | None = None,
-                             s_major2: jnp.ndarray | None = None,
-                             h_true: int | None = None,
-                             w_true: int | None = None,
-                             lr_kernel: bool = False) -> jnp.ndarray:
-    """Fused-kernel extraction: ONE Pallas pass over the label-major S
-    yields WTA + the subpixel neighborhood + the sheared right-WTA
-    (ops/pallas/extract_tr.py); the rest of the stage (parabola, LR,
-    median, fill) is cheap (H, W) XLA.  S is never transposed to the
-    minor layout and never re-read.  s_major2: the horizontal-family
-    half-sum from pair_out aggregation, merged in-kernel (round-4
-    trace-derived saving; see aggregate_paths_tr).  h_true: true row
-    count when S is row-padded (cost_tr kernel-cost pipeline).
-
-    lr_kernel: fold the LR-consistency check in too (round 5): the
-    right-WTA row stays in VMEM and the kernel emits the validity plane
-    directly (strided-roll shear gather, extract_tr._lr_valid_row) —
-    deletes the 128-shift XLA select loop from the dispatch.  Exactness
-    contract unchanged (rint(subpixel) rounding replicated in-kernel)."""
-    from fsgm_tpu.ops.pallas import extract_tr
-    from fsgm_tpu.params import INVALID
-    need_rwta = params.lr_check and d_right is None
-    with_lr = params.lr_max_diff if (need_rwta and lr_kernel) else None
-    d_int, s_m, s_0, s_p, d_r = extract_tr.extract_stereo_major(
-        s_major, params.s_invalid, w_true=w_true,
-        with_sub=params.subpixel, with_rwta=need_rwta,
-        s_major2=s_major2, h_true=h_true, with_lr=with_lr)
-    if need_rwta and with_lr is None:
-        d_right = d_r
-    disp = d_int.astype(jnp.float32)
-    if params.subpixel:
-        disp = ext.subpixel_from_neighborhood(d_int, s_m, s_0, s_p,
-                                              s_major.shape[1])
-    if params.lr_check:
-        if with_lr is not None:
-            disp = jnp.where(d_r != 0, disp, jnp.float32(INVALID))
-        else:
-            disp = ext.lr_check(disp, d_right, params.lr_max_diff,
-                                params.max_disp)
-    if params.median_filter:
-        disp = ext.median_filter_3x3(disp)
-    if params.fill_invalid:
-        disp = ext.interpolate_invalid(disp)
-    return disp
-
-
-def extract_disparity_major(s_major: jnp.ndarray, params: SGMParams,
-                            d_right: jnp.ndarray | None = None
-                            ) -> jnp.ndarray:
-    """extract_disparity on the label-MAJOR (H, L, W) S: same stages, all
-    reductions run over the non-minor label axis (W-contiguous vectors, no
-    cross-lane trees) and the right-WTA diagonal is a gather-free
-    pad+reshape skew (ext.wta_right_from_s_major)."""
-    d_int = ext.wta_major(s_major)
-    disp = d_int.astype(jnp.float32)
-    if params.subpixel:
-        disp = ext.subpixel_refine_major(s_major, d_int)
-    if params.lr_check:
-        if d_right is None:
-            d_right = ext.wta_right_from_s_major(s_major, params.s_invalid)
-        disp = ext.lr_check(disp, d_right, params.lr_max_diff,
-                            params.max_disp)
-    if params.median_filter:
-        disp = ext.median_filter_3x3(disp)
-    if params.fill_invalid:
-        disp = ext.interpolate_invalid(disp)
-    return disp
-
-
-def _has_both_families(params: SGMParams) -> bool:
-    """pair_out aggregation returns the (s_v, s_h_t) PAIR only when both
-    a vertical- and a horizontal-family direction are present; gating on
-    the actual family split (not a path count) keeps custom dirs sets —
-    e.g. 4+ all-vertical paths — on the single-volume path instead of a
-    trace-time unpack error (ADVICE r4)."""
-    return (any(dy != 0 for dy, _ in params.dirs)
-            and any(dy == 0 for dy, _ in params.dirs))
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
+@functools.partial(jax.jit, static_argnums=(2, 3))
 def _stereo_sgm_jit(img_l: jnp.ndarray, img_r: jnp.ndarray,
-                    params: SGMParams, backend: str,
-                    extract_mode: str = "minor",
-                    rwta_pallas: bool = False,
-                    lr_kernel: bool = False) -> jnp.ndarray:
-    d_right = None
-    if backend == "pallas_tr":
-        # the tr sweeps natively produce label-MAJOR S; extraction runs in
-        # the measured-fastest mode (_extract_mode):
-        #   kernel - fused Pallas pass (WTA + neighborhood + sheared
-        #            right-WTA in one read of S, no transposes); the S
-        #            halves arrive UNMERGED (pair_out) and add in-kernel
-        #   kernelm- same kernel on the materialized (XLA-merged) S — the
-        #            round-3 graph, kept for A/B (FSGM_EXTRACT=kernelm)
-        #   minor  - transpose S, XLA minor-layout extraction (right-WTA
-        #            from the Pallas shear kernel unless FSGM_RWTA=xla)
-        #   major  - XLA label-major extraction
-        cen_l = census_transform(img_l, params.census_window)
-        cen_r = census_transform(img_r, params.census_window)
-        pair = extract_mode == "kernel" and _has_both_families(params)
-        if pair:
-            s_major, s_h_t = _s_volume_tr(cen_l, cen_r, img_l, params,
-                                          pair_out=True)
-        else:
-            s_major = _s_volume_tr(cen_l, cen_r, img_l, params,
-                                   major_out=True)
-        if params.lr_check and params.lr_mode == "reagg":
-            d_right = right_disparity_reagg(cen_l, cen_r, img_r,
-                                            params, backend)
-        if extract_mode in ("kernel", "kernelm"):
-            return extract_disparity_kernel(
-                s_major, params, d_right=d_right,
-                s_major2=s_h_t if pair else None,
-                h_true=img_l.shape[0], w_true=img_l.shape[1],
-                lr_kernel=lr_kernel)
-        if extract_mode == "major":
-            return extract_disparity_major(s_major, params, d_right=d_right)
-        if (params.lr_check and d_right is None and rwta_pallas):
-            from fsgm_tpu.ops.pallas import extract_tr
-            d_right = extract_tr.wta_right_major(s_major, params.s_invalid)
-        s = jnp.transpose(s_major, (0, 2, 1))
-        return extract_disparity(s, params, backend, d_right=d_right)
+                    params: SGMParams, backend: str) -> jnp.ndarray:
     s = compute_s_volume(img_l, img_r, params, backend)
+    d_right = None
     if params.lr_check and params.lr_mode == "reagg":
         cen_l = census_transform(img_l, params.census_window)
         cen_r = census_transform(img_r, params.census_window)
         d_right = right_disparity_reagg(cen_l, cen_r, img_r, params,
                                         backend)
-    return extract_disparity(s, params, backend, d_right=d_right)
+    return extract_disparity(s, params, d_right=d_right)
 
 
-def _extract_major(backend: str, default: str = "0") -> bool:
-    """Label-major extraction (S stays (H, L, W); no merge transposes).
-
-    Measured on the real TPU (2026-08-19, batch-16 KITTI): the minor-layout
-    extraction WINS for stereo over XLA-major — 13.74-13.96 ms/frame vs
-    14.36-14.80 — XLA's cross-lane argmin/one-hot trees on the (H, W, D)
-    layout beat the non-minor-axis reductions plus the pad+reshape
-    right-WTA skew, outweighing the two transposes they require.  Flow
-    measures neutral (26.6-27.1 ms either way at batch 8) and keeps major
-    as its default (81 labels leave 37% lane pad in the minor layout;
-    models/flow.py passes default="1").  FSGM_EXTRACT_MAJOR overrides.
-    Stereo has a third, fused-kernel mode — see _extract_mode."""
-    import os
-    return (backend == "pallas_tr"
-            and os.environ.get("FSGM_EXTRACT_MAJOR", default) == "1")
-
-
-def _extract_mode(backend: str) -> str:
-    """Stereo extraction mode for the pallas_tr backend: 'kernel' (fused
-    Pallas extraction on the UNMERGED pair — the default), 'kernelm'
-    (same kernel on the XLA-merged S, the round-3 graph, for A/B),
-    'minor', or 'major' via FSGM_EXTRACT.  An explicit FSGM_EXTRACT_MAJOR
-    (used by the layout parity tests) pins the corresponding XLA mode."""
-    import os
-    if backend != "pallas_tr":
-        return "minor"
-    em = os.environ.get("FSGM_EXTRACT_MAJOR")
-    if em is not None:
-        return "major" if em == "1" else "minor"
-    mode = os.environ.get("FSGM_EXTRACT", "kernel")
-    assert mode in ("kernel", "kernelm", "minor", "major"), mode
-    return mode
-
-
-def _rwta_pallas(backend: str) -> bool:
-    """Pallas shear right-WTA is the pallas_tr default; FSGM_RWTA=xla pins
-    the XLA S-trick gather for A/B."""
-    import os
-    return (backend == "pallas_tr"
-            and os.environ.get("FSGM_RWTA", "pallas") == "pallas")
-
-
-def _lr_kernel(backend: str) -> bool:
-    """In-kernel LR-consistency (round 5): the fused extraction kernel
-    emits the validity plane directly via the strided-roll shear gather
-    (extract_tr._lr_valid_row) instead of handing d_right to the XLA
-    128-shift select loop.  FSGM_LR=xla pins the XLA loop for A/B.
-    Resolved OUTSIDE jit and threaded as a static arg (the resolved
-    value is part of the jit cache key — no stale-trace hazard)."""
-    import os
-    return (backend == "pallas_tr"
-            and os.environ.get("FSGM_LR", "kernel") == "kernel")
-
-
-def _s_volume_tr_batch(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
-                       imgs: jnp.ndarray, params: SGMParams,
-                       right_reference: bool = False,
-                       pair_out: bool = False) -> jnp.ndarray:
-    """Batched label-major S: vertical families vmapped per frame, the
-    horizontal family lane-folded across the batch (its (W, L, H) layout
-    has short H lanes; see aggregate_paths_tr_batch)."""
-    import os
-    from fsgm_tpu.ops.cost import cost_volume_stereo_major
-    from fsgm_tpu.ops.pallas import aggregate_tr
-    if pair_out and os.environ.get("FSGM_COST_KERNEL", "1") != "0":
-        # round-4 kernel cost build, batch form: ONE lane-folded Pallas
-        # wlh volume feeds the folded horizontal sweeps directly (no
-        # XLA pad+transpose fold), and the per-frame row/lane-padded
-        # vertical volumes are one u8 unfold-transpose of it.  Same
-        # neutral-zero-pad exactness as the single-frame path.
-        from fsgm_tpu.ops.pallas import cost_tr
-        b, h, w = imgs.shape
-        hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
-        cwlh = cost_tr.cost_volume_wlh_batch(
-            cen_l, cen_r, params.max_disp, params.invalid_cost,
-            right_reference)
-        cost = jnp.transpose(cwlh.reshape(wp, params.max_disp, b, hp),
-                             (2, 3, 1, 0))          # (B, Hp, L, Wp)
-        imgs_p = jnp.pad(imgs, ((0, 0), (0, hp - h), (0, wp - w)),
-                         mode="edge")
-        return aggregate_tr.aggregate_paths_tr_batch(
-            cost, imgs_p, params.dirs, params.p1, params.p2,
-            params.adaptive_p2, s_max=params.s_invalid,
-            major_out=not pair_out, pair_out=pair_out, cost_bwlh=cwlh)
-    cost = jax.vmap(lambda a, b: cost_volume_stereo_major(
-        a, b, params.max_disp, params.invalid_cost, right_reference))(
-        cen_l, cen_r)
-    return aggregate_tr.aggregate_paths_tr_batch(
-        cost, imgs, params.dirs, params.p1, params.p2, params.adaptive_p2,
-        s_max=params.s_invalid, major_out=not pair_out, pair_out=pair_out)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7))
+@functools.partial(jax.jit, static_argnums=(2, 3))
 def _stereo_sgm_batch_jit(imgs_l: jnp.ndarray, imgs_r: jnp.ndarray,
-                          params: SGMParams, backend: str,
-                          extract_mode: str, rwta_pallas: bool,
-                          fold: bool = True,
-                          lr_kernel: bool = False) -> jnp.ndarray:
-    if backend != "pallas_tr" or not fold:
-        return jax.vmap(
-            lambda a, b: _stereo_sgm_jit(a, b, params, backend,
-                                         extract_mode, rwta_pallas,
-                                         lr_kernel))(
-            imgs_l, imgs_r)
-    cen = jax.vmap(lambda x: census_transform(x, params.census_window))
-    cen_l, cen_r = cen(imgs_l), cen(imgs_r)
-    pair = extract_mode == "kernel" and _has_both_families(params)
-    s_h_t = None
-    if pair:
-        s_major, s_h_t = _s_volume_tr_batch(cen_l, cen_r, imgs_l, params,
-                                            pair_out=True)
-    else:
-        s_major = _s_volume_tr_batch(cen_l, cen_r, imgs_l, params)
-    d_right = None
-    if params.lr_check and params.lr_mode == "reagg":
-        s_r = _s_volume_tr_batch(cen_l, cen_r, imgs_r, params,
-                                 right_reference=True)
-        d_right = jax.vmap(ext.wta_major)(s_r)
-
-    def one(s, s2=None, dr=None):
-        if extract_mode in ("kernel", "kernelm"):
-            return extract_disparity_kernel(s, params, d_right=dr,
-                                            s_major2=s2,
-                                            h_true=imgs_l.shape[1],
-                                            w_true=imgs_l.shape[2],
-                                            lr_kernel=lr_kernel)
-        if extract_mode == "major":
-            return extract_disparity_major(s, params, d_right=dr)
-        if params.lr_check and dr is None and rwta_pallas:
-            from fsgm_tpu.ops.pallas import extract_tr
-            dr = extract_tr.wta_right_major(s, params.s_invalid)
-        return extract_disparity(jnp.transpose(s, (0, 2, 1)), params,
-                                 backend, d_right=dr)
-
-    if pair:
-        if d_right is not None:
-            return jax.vmap(lambda s, s2, dr: one(s, s2, dr))(
-                s_major, s_h_t, d_right)
-        return jax.vmap(lambda s, s2: one(s, s2))(s_major, s_h_t)
-    if d_right is not None:
-        return jax.vmap(lambda s, dr: one(s, None, dr))(s_major, d_right)
-    return jax.vmap(one)(s_major)
+                          params: SGMParams, backend: str) -> jnp.ndarray:
+    return jax.vmap(lambda a, b: _stereo_sgm_jit(a, b, params, backend))(
+        imgs_l, imgs_r)
 
 
 def stereo_sgm_batch(imgs_l: jnp.ndarray, imgs_r: jnp.ndarray,
-                     params: SGMParams, backend: str = "xla"
+                     params: SGMParams, backend: str = "auto"
                      ) -> jnp.ndarray:
-    """Batched stereo pipeline: (B, H, W) uint8 pairs -> (B, H, W) f32.
-
-    Bit-identical to stacking stereo_sgm over the batch (the fold touches
-    only the horizontal family, which has no cross-lane ops —
-    tests/unit/test_batch_fold.py), but the horizontal sweeps run ONCE on
-    B*H-wide lanes instead of B serialized short-lane passes.  This is the
-    frame-DP fast path the bench and batch CLI use on one chip."""
-    import os
-    backend = resolve_backend(backend)
-    # fold only when the per-frame lane count (padded height) is small
-    # enough to pay (aggregate_tr.fold_max_lanes: measured gate); the
-    # serialized fallback is the plain vmap over stereo_sgm
-    from fsgm_tpu.ops.pallas.aggregate_tr import (fold_max_lanes,
-                                                  fold_max_total_lanes)
-    hp = -(-imgs_l.shape[1] // 8) * 8
-    fold = (os.environ.get("FSGM_BATCH_FOLD", "1") != "0"
-            and hp <= fold_max_lanes()
-            # VMEM guard: the folded sweep's blocks are (rb, L, B*Hp) —
-            # unbounded batch would blow the compile-time VMEM ceiling
-            and imgs_l.shape[0] * hp <= fold_max_total_lanes())
-    return _stereo_sgm_batch_jit(imgs_l, imgs_r, params, backend,
-                                 _extract_mode(backend),
-                                 _rwta_pallas(backend), fold,
-                                 _lr_kernel(backend))
+    """Batched stereo pipeline: (B, H, W) uint8 pairs -> (B, H, W) f32,
+    bit-identical to stacking stereo_sgm over the batch.  On the kernel
+    backend the frames become one more grid axis of each sweep."""
+    return _stereo_sgm_batch_jit(imgs_l, imgs_r, params,
+                                 resolve_backend(backend))
 
 
 def stereo_sgm(img_l: jnp.ndarray, img_r: jnp.ndarray, params: SGMParams,
-               backend: str = "xla") -> jnp.ndarray:
+               backend: str = "auto") -> jnp.ndarray:
     """Full stereo pipeline: (H, W) uint8 pair -> (H, W) float32 disparity.
 
-    The env-dependent backend resolution ('pallas' -> 'pallas_tr' unless
-    FSGM_TR=0; FSGM_EXTRACT_MAJOR, FSGM_RWTA) happens OUTSIDE the jit so
-    the resolved names are the cache key — flipping the env between calls
-    can never hit a stale trace."""
-    backend = resolve_backend(backend)
-    return _stereo_sgm_jit(img_l, img_r, params, backend,
-                           _extract_mode(backend), _rwta_pallas(backend),
-                           _lr_kernel(backend))
+    backend: 'auto' (picked from the platform, fsgm_tpu.backend), 'xla'
+    or 'triton'.  It is resolved outside the jit, so the resolved name is
+    the cache key."""
+    return _stereo_sgm_jit(img_l, img_r, params, resolve_backend(backend))

@@ -1,13 +1,13 @@
 """SGM path aggregation in pure JAX (XLA `lax.scan` path).
 
 This is the reference's native hot core (SURVEY.md §2.1 "SGM path
-aggregation", C++/MEX there) re-expressed TPU-first:
+aggregation", C++/MEX there) re-expressed as XLA scans:
 
   * ONE canonical row-scan implements all 16 directions.  Horizontal
     directions transpose the volume (direction (0,dx) on the transpose is
     (dx,0)); negative dy flips the y axis.  The sequential axis is
     `lax.scan` over rows; everything else (scanline x, disparity d) is
-    vector lanes (SURVEY.md §3.3: 375x128 ≈ 48K lanes at KITTI size).
+    vectorized within each step (375x128 ≈ 48K elements at KITTI size).
   * Knight-move directions (|dy|=2 or |dx|=2, the 16-path extension) fall
     out of the same kernel: the carry holds the last TWO L rows and the
     predecessor row is x-shifted by dx ∈ {-2..2}.
@@ -16,8 +16,9 @@ aggregation", C++/MEX there) re-expressed TPU-first:
   * The label-space neighbor min is pluggable: 1D (stereo disparity) or 2D
     grid (fSGM flow labels), mirroring golden/sgm.py.
 
-The Pallas speed-of-light kernels live in ops/pallas/; this module is the
-always-correct XLA fallback and the tracing skeleton for tiled execution.
+This module is the platform-independent implementation, the reference the
+GPU kernel (ops/aggregate_triton.py) is tested against, and the carry API
+that tiled execution (parallel/tiled.py) uses.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from __future__ import annotations
 from typing import Callable, Sequence, Tuple
 
 import jax
+import numpy as np
 import jax.numpy as jnp
 
-INF32 = jnp.int32(1 << 28)  # addable headroom in int32
+INF32 = np.int32(1 << 28)  # addable headroom in int32
 
 
 def neighbor_min_1d(prev: jnp.ndarray, p1: int) -> jnp.ndarray:
@@ -36,7 +38,7 @@ def neighbor_min_1d(prev: jnp.ndarray, p1: int) -> jnp.ndarray:
         [jnp.full(prev.shape[:-1] + (1,), INF32), prev[..., :-1]], axis=-1)
     shift_plus = jnp.concatenate(
         [prev[..., 1:], jnp.full(prev.shape[:-1] + (1,), INF32)], axis=-1)
-    return jnp.minimum(shift_minus, shift_plus) + jnp.int32(p1)
+    return jnp.minimum(shift_minus, shift_plus) + np.int32(p1)
 
 
 def make_neighbor_min_2d(radius: int) -> Callable:
@@ -53,7 +55,7 @@ def make_neighbor_min_2d(radius: int) -> Callable:
         left = jnp.concatenate([inf_col, g[..., :, :-1]], axis=-1)
         right = jnp.concatenate([g[..., :, 1:], inf_col], axis=-1)
         m = jnp.minimum(jnp.minimum(up, down), jnp.minimum(left, right))
-        return m.reshape(lead + (ext * ext,)) + jnp.int32(p1)
+        return m.reshape(lead + (ext * ext,)) + np.int32(p1)
 
     return neighbor_min_2d
 
@@ -63,6 +65,8 @@ def _shift_x(row: jnp.ndarray, dx: int, fill) -> jnp.ndarray:
     if dx == 0:
         return row
     w = row.shape[0]
+    if abs(dx) >= w:                 # every predecessor is off the image
+        return jnp.full(row.shape, fill, dtype=row.dtype)
     pad = jnp.full((abs(dx),) + row.shape[1:], fill, dtype=row.dtype)
     if dx > 0:
         return jnp.concatenate([pad, row[: w - dx]], axis=0)
@@ -91,8 +95,8 @@ def _p2_effective(img: jnp.ndarray, img_prev2: jnp.ndarray | None,
     pred = jax.lax.dynamic_slice_in_dim(ext, 2 - dy, h, axis=0)
     pred = jnp.roll(pred, dx, axis=1)
     diff = jnp.maximum(jnp.abs(img - pred), 1)
-    out = jnp.maximum(jnp.int32(p1 + 1), jnp.int32(p2) // diff)
-    return jnp.where(valid, out, jnp.int32(p2))
+    out = jnp.maximum(np.int32(p1 + 1), np.int32(p2) // diff)
+    return jnp.where(valid, out, np.int32(p2))
 
 
 def _valid_mask(h: int, w: int, dx: int) -> jnp.ndarray:
@@ -150,7 +154,7 @@ def aggregate_one_path(cost: jnp.ndarray, img: jnp.ndarray,
     # inside the scan step
     valid = _valid_mask(h, w, dx)
     p2e = _p2_effective(img, img_prev2, dy, dx, valid, p1, p2, adaptive_p2)
-    p1_32 = jnp.int32(p1)
+    p1_32 = np.int32(p1)
 
     if init_carry is None:
         carry0 = jnp.zeros((2, w, nd), dtype=jnp.int32)
@@ -180,8 +184,7 @@ def _family_scan(cost: jnp.ndarray, img: jnp.ndarray,
                  fam: Sequence[Tuple[int, int]], p1: int, p2: int,
                  adaptive_p2: bool, neighbor_min: Callable) -> jnp.ndarray:
     """One lax.scan computing SUM of L_r over a whole downward family
-    (all dy > 0; 3 dirs at 8 paths, 7 with the knight moves — the same
-    family structure as the Pallas row sweeps).
+    (all dy > 0; 3 dirs at 8 paths, 7 with the knight moves).
 
     vs one scan per direction this reads the cost volume once per FAMILY
     and never materializes per-direction L volumes (the summed row is the
@@ -190,7 +193,7 @@ def _family_scan(cost: jnp.ndarray, img: jnp.ndarray,
     rows and per-pixel arithmetic).  Per-direction math matches
     aggregate_one_path exactly."""
     h, w, nd = cost.shape
-    p1_32 = jnp.int32(p1)
+    p1_32 = np.int32(p1)
     valids = jnp.stack([_valid_mask(h, w, dx) for _, dx in fam])   # (n,H,W)
     p2es = jnp.stack([
         _p2_effective(img, None, dy, dx, v, p1, p2, adaptive_p2)
@@ -230,22 +233,12 @@ def aggregate_paths(cost: jnp.ndarray, img: jnp.ndarray,
                     neighbor_min: Callable = neighbor_min_1d) -> jnp.ndarray:
     """S = sum_r L_r, int32.  (SURVEY.md §3.1 HOT #1.)
 
-    By default directions are grouped into the four canonical families
-    (down, up, right, left — up flips y, horizontals transpose), each as
-    ONE fused scan (_family_scan): bit-exact vs the per-direction loop
-    (tests cover both) and ~35% less modeled HBM traffic.  TPU A/B
-    (2026-08-18, batch-8 flow bench, two runs each): fused 34.60/34.62 ms
-    vs per-direction 35.23/35.19 — a consistent ~1.7% end-to-end win with
-    comparable warm compile, so fused is the default; FSGM_XLA_FUSED=0
-    restores the per-direction loop.  The per-direction carry API for
+    Directions are grouped into the four canonical families (down, up,
+    right, left — up flips y, horizontals transpose), each as ONE fused
+    scan (_family_scan): bit-exact vs summing aggregate_one_path over the
+    directions (tests cover both) with one read of the cost volume per
+    family instead of per direction.  The per-direction carry API for
     tiled execution lives in aggregate_one_path."""
-    import os
-    if os.environ.get("FSGM_XLA_FUSED", "1") != "1":
-        s = jnp.zeros(cost.shape, dtype=jnp.int32)
-        for r in dirs:
-            s = s + aggregate_one_path(cost, img, r, p1, p2, adaptive_p2,
-                                       neighbor_min)
-        return s
     s = jnp.zeros(cost.shape, dtype=jnp.int32)
     down = [(dy, dx) for dy, dx in dirs if dy > 0]
     up = [(-dy, dx) for dy, dx in dirs if dy < 0]

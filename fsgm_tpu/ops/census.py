@@ -1,17 +1,15 @@
 """Census transform and Hamming cost in JAX (XLA path).
 
-TPU-native design notes:
+Design notes:
   * Descriptors are packed into uint32 words ((bits+31)//32 words, so the
-    9x7 62-bit window needs 2 words) — JAX default has no uint64 and 32-bit
-    lanes are the VPU's native width.
+    9x7 62-bit window needs 2 words) — JAX default has no uint64.
   * Hamming distance uses `lax.population_count` on the XOR, summed over
     words.
   * Bit order matches golden/sgm.py::census_transform exactly (row-major
     window scan, center skipped, bit = neighbor < center).
 
 Reference capability: SURVEY.md §2.1 "Census transform" (reference realizes
-it as MATLAB/MEX; here it is a fused XLA elementwise pipeline; the Pallas
-fused census+cost kernel lives in ops/pallas/).
+it as MATLAB/MEX; here it is a fused XLA elementwise pipeline).
 """
 
 from __future__ import annotations

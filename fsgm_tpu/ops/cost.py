@@ -24,8 +24,8 @@ def cost_volume_stereo(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
     """Returns (H, W, D) uint8 cost volume.
 
     Built as ONE gather of the right descriptors at x-d plus a broadcast
-    XOR/popcount — per-disparity Python loops would emit D separate
-    (H, W, 1) temporaries that TPU tiling pads 128x (OOM at KITTI size).
+    XOR/popcount that XLA fuses into one elementwise pass (no D separate
+    (H, W, 1) temporaries).
     """
     h, w, n_words = cen_l.shape
     xs = jnp.arange(w, dtype=jnp.int32)[:, None]           # (W, 1)
@@ -60,88 +60,6 @@ def cost_volume_stereo_right(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
     return c.astype(jnp.uint8)
 
 
-def _stereo_major_planes(cen_ref: jnp.ndarray, cen_match: jnp.ndarray,
-                         max_disp: int, invalid_cost: int,
-                         sign: int) -> list[jnp.ndarray]:
-    """The D shifted-hamming (H, W) planes of the stereo cost volume.
-    sign=+1: left-reference (match at x-d); sign=-1: right-reference
-    (match at x+d).  Full-lane planes stacked by the callers — the same
-    vectorized-producer pattern as the flow label-major builder."""
-    h, w, _ = cen_ref.shape
-    planes = []
-    for d in range(max_disp):
-        if d == 0:
-            shifted, ok = cen_match, None
-        elif sign > 0:
-            shifted = jnp.concatenate(
-                [jnp.zeros((h, d) + cen_match.shape[2:], cen_match.dtype),
-                 cen_match[:, :w - d]], axis=1)
-        else:
-            shifted = jnp.concatenate(
-                [cen_match[:, d:],
-                 jnp.zeros((h, d) + cen_match.shape[2:], cen_match.dtype)],
-                axis=1)
-        ham = hamming(cen_ref, shifted)
-        if d == 0:
-            planes.append(ham.astype(jnp.uint8))
-            continue
-        xs = jnp.arange(w, dtype=jnp.int32)[None, :]
-        ok = xs >= d if sign > 0 else xs < w - d
-        planes.append(jnp.where(ok, ham, invalid_cost).astype(jnp.uint8))
-    return planes
-
-
-def cost_volume_stereo_major(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
-                             max_disp: int, invalid_cost: int = 255,
-                             right_reference: bool = False) -> jnp.ndarray:
-    """(H, D, W) uint8 label-MAJOR stereo cost volume (disparity plane d
-    at [:, d, :]) — the vertical-family feed for the transposed-layout
-    sweeps (ops/pallas/aggregate_tr.py).  Same values as
-    cost_volume_stereo (/ _right when right_reference)."""
-    cen_ref, cen_match = (cen_r, cen_l) if right_reference \
-        else (cen_l, cen_r)
-    sign = -1 if right_reference else 1
-    return jnp.stack(_stereo_major_planes(cen_ref, cen_match, max_disp,
-                                          invalid_cost, sign), axis=1)
-
-
-def cost_volume_stereo_major_cols(cen_l: jnp.ndarray, cen_r: jnp.ndarray,
-                                  max_disp: int, invalid_cost: int = 255,
-                                  right_reference: bool = False
-                                  ) -> jnp.ndarray:
-    """(W, D, H) uint8 stereo cost volume — the horizontal-family feed
-    for the transposed sweeps (a horizontal image path is a vertical path
-    on the transposed image).  Built from transposed censuses so the
-    planes are produced vectorized along H; same values as
-    cost_volume_stereo[_right] with axes (1, 2, 0)."""
-    cen_ref, cen_match = (cen_r, cen_l) if right_reference \
-        else (cen_l, cen_r)
-    sign = -1 if right_reference else 1
-    cen_ref_t = jnp.swapaxes(cen_ref, 0, 1)
-    cen_match_t = jnp.swapaxes(cen_match, 0, 1)
-    w, h, _ = cen_ref_t.shape
-    planes = []
-    for d in range(max_disp):
-        if d == 0:
-            planes.append(hamming(cen_ref_t, cen_match_t)
-                          .astype(jnp.uint8))
-            continue
-        if sign > 0:
-            shifted = jnp.concatenate(
-                [jnp.zeros((d, h) + cen_match_t.shape[2:],
-                           cen_match_t.dtype), cen_match_t[:w - d]], axis=0)
-            ok = jnp.arange(w, dtype=jnp.int32)[:, None] >= d
-        else:
-            shifted = jnp.concatenate(
-                [cen_match_t[d:],
-                 jnp.zeros((d, h) + cen_match_t.shape[2:],
-                           cen_match_t.dtype)], axis=0)
-            ok = jnp.arange(w, dtype=jnp.int32)[:, None] < w - d
-        ham = hamming(cen_ref_t, shifted)
-        planes.append(jnp.where(ok, ham, invalid_cost).astype(jnp.uint8))
-    return jnp.stack(planes, axis=1)
-
-
 def warp_census_blocked(cen2: jnp.ndarray, base_u: jnp.ndarray,
                         base_v: jnp.ndarray) -> jnp.ndarray:
     """cen2w[y, x] = cen2[y + base_v[y, x], x + base_u[y, x]] for base
@@ -151,11 +69,8 @@ def warp_census_blocked(cen2: jnp.ndarray, base_u: jnp.ndarray,
     the odd-edge extension repeats the last row/col, which is still
     block-constant for the 1-wide edge blocks).
 
-    TPU gathers are INDEX-count-bound with payload width ~free
-    (tools/warpprobe.py: f32x2 rows gather FASTER per index than bare
-    u32), so gathering ONE 2x2 patch per block instead of one word per
-    pixel quarters the warp cost — measured 116 ms of the 616 ms 4K-flow
-    frame in the per-pixel form.
+    Gathering ONE 2x2 patch per block instead of one word per pixel
+    quarters the number of gather indices.
 
     Out-of-range positions return arbitrary (pad/clipped) values exactly
     like the clipped per-pixel gather; callers mask with the same
@@ -190,8 +105,8 @@ def _flow_cost_planes(cen1: jnp.ndarray, cen2: jnp.ndarray,
                       y_offset: int | jnp.ndarray,
                       identity_base: bool,
                       block_warp: bool = False) -> list[jnp.ndarray]:
-    """The (2w+1)^2 shifted-hamming planes shared by both flow builders
-    (label-minor and label-major); label order l = (dv+w)*(2w+1)+(du+w)."""
+    """The (2w+1)^2 shifted-hamming planes of the flow cost volume; label
+    order l = (dv+w)*(2w+1)+(du+w)."""
     h, w = cen1.shape[:2]
     h2 = cen2.shape[0]
     hb = base_u.shape[0]             # h (untiled) or h + 2*halo (tiled)
@@ -202,7 +117,7 @@ def _flow_cost_planes(cen1: jnp.ndarray, cen2: jnp.ndarray,
     sx = xx + base_u
     if identity_base:
         # coarsest pyramid level: the prior flow is identically zero, so
-        # the per-pixel warp gather (~4 ms/frame, index-bound) is skipped;
+        # the per-pixel warp gather is skipped;
         # cen2w rows are just cen2 at the tile's global rows (zero rows
         # outside — masked invalid by ok_w anyway)
         ok_w = jnp.broadcast_to((yy >= 0) & (yy < h2), (hb, w))
@@ -217,17 +132,14 @@ def _flow_cost_planes(cen1: jnp.ndarray, cen2: jnp.ndarray,
     else:
         ok_w = (sy >= 0) & (sy < h2) & (sx >= 0) & (sx < w) & \
             (yy >= 0) & (yy < h2)
-        import os
         if block_warp and halo == 0 and hb == h and \
-                isinstance(y_offset, int) and y_offset == 0 and \
-                os.environ.get("FSGM_BLOCK_WARP", "1") != "0":
+                isinstance(y_offset, int) and y_offset == 0:
             # prior came from a 2x nearest upsample: one patch gather per
             # 2x2 block (4x fewer indices, bit-identical masked planes)
             cen2w = warp_census_blocked(cen2, base_u, base_v)
         else:
-            # flattened linear-index take: measurably faster than the 2D
-            # advanced-index lowering for (H, W) field gathers on TPU
-            # (tools/fbbench.py: 4.2 vs 5.8 ms at KITTI size); same values
+            # flattened linear-index take over the (H*W,) descriptors;
+            # same values as the 2D advanced-index form
             idx = (jnp.clip(sy, 0, h2 - 1) * w + jnp.clip(sx, 0, w - 1))
             cen2w = jnp.take(cen2.reshape((h2 * w,) + cen2.shape[2:]),
                              idx, axis=0)
@@ -276,9 +188,9 @@ def cost_volume_flow(cen1: jnp.ndarray, cen2: jnp.ndarray,
 
     Exactly mirrors golden/flow.py::cost_volume_flow: the second image's
     census is warped ONCE by the rounded prior flow (a single per-pixel
-    gather — the per-pixel-per-label gather XLA would otherwise emit costs
-    ~400 ms/frame on TPU), then the (2w+1)^2 window offsets are STATIC
-    shifts of the warped descriptors.  Label order l = (dv+w)*(2w+1)+(du+w).
+    gather instead of one per pixel and label), then the (2w+1)^2 window
+    offsets are STATIC shifts of the warped descriptors.  Label order
+    l = (dv+w)*(2w+1)+(du+w).
 
     Tiled mode: cen1 is a row tile, cen2 the FULL second image, y_offset
     the tile's global starting row, and base_u/base_v arrive EXTENDED by
@@ -286,39 +198,7 @@ def cost_volume_flow(cen1: jnp.ndarray, cen2: jnp.ndarray,
     descriptors across tile seams).  Untiled callers pass unextended
     fields; rows beyond the provided halo are invalid-padded internally,
     which matches the golden bounds semantics.
-
-    NOTE for Pallas consumers: this label-MINOR stack materializes
-    scalarized when it feeds a custom call (~32 ms at KITTI size —
-    measured, see ops/pallas/transpose_pallas.py).  Fused XLA consumers
-    (reductions, the scan backend) are unaffected.  The Pallas pipeline
-    uses cost_volume_flow_major + the butterfly transpose instead.
     """
     return jnp.stack(
         _flow_cost_planes(cen1, cen2, base_u, base_v, radius, invalid_cost,
                           y_offset, identity_base, block_warp), axis=-1)
-
-
-def cost_volume_flow_major(cen1: jnp.ndarray, cen2: jnp.ndarray,
-                           base_u: jnp.ndarray, base_v: jnp.ndarray,
-                           radius: int, invalid_cost: int = 255,
-                           y_offset: int | jnp.ndarray = 0,
-                           identity_base: bool = False,
-                           nd_pad: int | None = None,
-                           block_warp: bool = False) -> jnp.ndarray:
-    """(H, nd_pad, W) uint8 label-MAJOR flow cost volume.
-
-    Same values as cost_volume_flow (label l lives at [:, l, :]); the
-    label axis is padded to `nd_pad` with invalid_cost planes, which
-    behave exactly like invalid pixels in the sweep kernels (never win a
-    min; the golden edge-masking keeps them out of real lanes' neighbor
-    mins).  Written vectorized along W — this is the fast producer for
-    the Pallas path (pair with transpose_pallas.label_minor_from_major).
-    """
-    planes = _flow_cost_planes(cen1, cen2, base_u, base_v, radius,
-                               invalid_cost, y_offset, identity_base,
-                               block_warp)
-    if nd_pad is not None and nd_pad > len(planes):
-        h, w = cen1.shape[:2]
-        pad = jnp.full((h, w), invalid_cost, jnp.uint8)
-        planes = planes + [pad] * (nd_pad - len(planes))
-    return jnp.stack(planes, axis=1)

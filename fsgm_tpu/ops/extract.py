@@ -9,6 +9,7 @@ the same jit as aggregation).
 from __future__ import annotations
 
 import jax
+import numpy as np
 import jax.numpy as jnp
 
 from fsgm_tpu.params import INVALID
@@ -26,8 +27,7 @@ def wta_right_from_s(s: jnp.ndarray, s_invalid: int,
     """Right-view disparity via the S-volume trick (SURVEY.md §2.1):
     d_R(y,x) = argmin_d S(y, x+d, d);  x+d >= W -> s_invalid.
 
-    One gather along x (per-plane Python loops would emit D padded
-    (H, W, 1) temporaries — 128x padding blowup on TPU).
+    One gather along x rather than D per-plane (H, W, 1) temporaries.
 
     gx / w_global: column-tiled mode — s spans an x-extended window whose
     columns sit at GLOBAL positions gx (see parallel/tiled.py); validity
@@ -49,14 +49,13 @@ def wta_right_from_s(s: jnp.ndarray, s_invalid: int,
 def neighborhood_of_min(s: jnp.ndarray, d_int: jnp.ndarray):
     """(S[d*-1], S[d*], S[d*+1]) as int32 maps, via one-hot lane reductions.
 
-    take_along_axis gathers over the (H, W, D) volume are pathologically
-    slow on TPU (~20 ms/frame at KITTI size); three masked min-reductions
-    fuse into a single streaming pass instead.  Out-of-range neighbors
+    Three masked min-reductions fuse into a single streaming pass over S
+    instead of a take_along_axis gather.  Out-of-range neighbors
     (d*=0 or D-1) come back as the BIG sentinel — callers gate on the
     interior mask exactly like the golden model, so the values are unused.
     """
     nd = s.shape[-1]
-    big = jnp.int32(1 << 24)
+    big = np.int32(1 << 24)
     lane = jnp.arange(nd, dtype=jnp.int32)
     d = d_int[..., None]
     sv = s.astype(jnp.int32)
@@ -96,67 +95,12 @@ def subpixel_refine(s: jnp.ndarray, d_int: jnp.ndarray) -> jnp.ndarray:
     return d_int.astype(jnp.float32) + jnp.where(ok, offset, 0.0)
 
 
-# --------------------------------------------------------------------------
-# Label-MAJOR extraction (S laid out (H, L, W), the transposed-backend
-# native layout — see ops/pallas/aggregate_tr.py).  Running extraction in
-# this layout removes the two S merge transposes AND streams W-contiguous
-# vectors through every reduction (labels ride a non-minor axis, so argmin /
-# one-hot mins are elementwise over full (H, W) planes instead of cross-lane
-# trees).  Bit-identical to the minor-layout functions above on the
-# transposed input (tests/unit/test_extract_major.py).
-# --------------------------------------------------------------------------
-
-
-def wta_major(s: jnp.ndarray) -> jnp.ndarray:
-    """argmin over axis 1 of (H, L, W); ties -> smallest index."""
-    return jnp.argmin(s, axis=1).astype(jnp.int32)
-
-
-def neighborhood_of_min_major(s: jnp.ndarray, d_int: jnp.ndarray):
-    """(S[d*-1], S[d*], S[d*+1]) from (H, L, W) S via one-hot plane mins
-    (same contract as neighborhood_of_min; out-of-range -> BIG sentinel)."""
-    nl = s.shape[1]
-    big = jnp.int32(1 << 24)
-    lab = jnp.arange(nl, dtype=jnp.int32)[None, :, None]
-    d = d_int[:, None, :]
-    sv = s.astype(jnp.int32)
-    s_m = jnp.min(jnp.where(lab == d - 1, sv, big), axis=1)
-    s_0 = jnp.min(jnp.where(lab == d, sv, big), axis=1)
-    s_p = jnp.min(jnp.where(lab == d + 1, sv, big), axis=1)
-    return s_m, s_0, s_p
-
-
-def subpixel_refine_major(s: jnp.ndarray, d_int: jnp.ndarray) -> jnp.ndarray:
-    """Quadratic refinement on label-major S; matches subpixel_refine."""
-    nl = s.shape[1]
-    s_m, s_0, s_p = neighborhood_of_min_major(s, d_int)
-    return subpixel_from_neighborhood(d_int, s_m, s_0, s_p, nl)
-
-
-def wta_right_from_s_major(s: jnp.ndarray, s_invalid: int) -> jnp.ndarray:
-    """Right-view disparity d_R(y,x) = argmin_d S(y, x+d, d) on label-major
-    (H, L, W) S with ZERO gathers: pad W with s_invalid, then the classic
-    skew-by-reshape — flattening (L, Wp) and re-viewing rows at stride Wp+1
-    shifts row d left by d, so diag[y, d, x] = S[y, d, x+d].  x+d >= W
-    lands in the s_invalid pad (or past it in the stride-pad, also
-    s_invalid), reproducing wta_right_from_s's validity rule exactly."""
-    h, nl, w = s.shape
-    wp = w + nl                                  # row d needs x+d <= W-1+L-1
-    pad = jnp.full((h, nl, wp - w), jnp.asarray(s_invalid, s.dtype))
-    flat = jnp.concatenate([s, pad], axis=2).reshape(h, nl * wp)
-    flat = jnp.concatenate(
-        [flat, jnp.full((h, nl), jnp.asarray(s_invalid, s.dtype))], axis=1)
-    diag = flat.reshape(h, nl, wp + 1)[:, :, :w]  # diag[y,d,x] = S[y,d,x+d]
-    return jnp.argmin(diag, axis=1).astype(jnp.int32)
-
-
 def lr_check(d_left: jnp.ndarray, d_right: jnp.ndarray, max_diff: int = 1,
              max_disp: int | None = None) -> jnp.ndarray:
     """Invalidate where |d_L(x) - d_R(x - round(d_L))| > max_diff -> INVALID.
 
     The lookup index x - d_L spans only a max_disp-wide window, so the
-    gather is expressed as max_disp static shifts + selects — a dynamic
-    take_along_axis on the lane axis is ~15x slower on TPU.  Negative
+    gather is expressed as max_disp static shifts + selects.  Negative
     rounded disparities (possible after subpixel at d*=0) fail the check
     exactly as in the golden model (index out of range -> INVALID).
     """
@@ -177,7 +121,7 @@ def lr_check(d_left: jnp.ndarray, d_right: jnp.ndarray, max_diff: int = 1,
         hit = (d_round == d) & (xs >= d) & \
             (jnp.abs(d - shifted) <= max_diff)
         ok = ok | hit
-    return jnp.where(ok, d_left, jnp.float32(INVALID))
+    return jnp.where(ok, d_left, np.float32(INVALID))
 
 
 def interpolate_invalid(field: jnp.ndarray, max_disp: int | None = None
@@ -193,13 +137,13 @@ def interpolate_invalid(field: jnp.ndarray, max_disp: int | None = None
     """
     h, w = field.shape
     valid = field >= 0
-    big = jnp.float32(1e9)
+    big = np.float32(1e9)
 
     def propagate(vals, ok, reverse: bool):
         # nearest valid value at or before x (after at or after x)
         v = jnp.where(ok, vals, big)
         idx = jnp.where(ok, jnp.arange(w, dtype=jnp.int32)[None, :],
-                        jnp.int32(-1) if not reverse else jnp.int32(1 << 30))
+                        np.int32(-1) if not reverse else np.int32(1 << 30))
         shift = 1
         # doubling trick: carry the most recent valid (value, position)
         while shift < w:
@@ -225,7 +169,7 @@ def interpolate_invalid(field: jnp.ndarray, max_disp: int | None = None
     left = propagate(field, valid, reverse=False)
     right = propagate(field, valid, reverse=True)
     fill = jnp.minimum(left, right)          # background wins
-    fill = jnp.where(fill >= big, jnp.float32(INVALID), fill)
+    fill = jnp.where(fill >= big, np.float32(INVALID), fill)
     return jnp.where(valid, field, fill)
 
 
@@ -234,8 +178,8 @@ def median_filter_3x3(field: jnp.ndarray) -> jnp.ndarray:
     (median of 9 = 5th order statistic).
 
     Uses the optimal 19-exchange median-of-9 network (Paeth 1990) as pure
-    elementwise min/max — an order of magnitude cheaper than a full sort
-    on TPU and bit-identical to it for the median element."""
+    elementwise min/max — cheaper than a full sort and bit-identical to it
+    for the median element."""
     h, w = field.shape
     padded = jnp.pad(field, 1, mode="edge")
     v = [jax.lax.dynamic_slice(padded, (dy, dx), (h, w))

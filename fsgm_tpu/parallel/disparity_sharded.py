@@ -1,6 +1,6 @@
 """Disparity-axis (label) sharding — the tensor-parallel analog.
 
-SURVEY.md §2.2 "TP" row: each chip holds D/k disparity planes of the cost
+SURVEY.md §2.2 "TP" row: each device holds D/k disparity planes of the cost
 volume.  Useful only for very large label spaces (the per-scan-step
 cross-chip reduction is expensive — documented trade-off); implemented as
 an optional, exact mode:
@@ -17,16 +17,11 @@ an optional, exact mode:
 Everything stays integer until subpixel, so the mode is bit-exact vs the
 single-chip pipeline (tests/distributed/test_disparity_sharded.py).
 
-Backend note: this mode is XLA-only BY CONSTRUCTION, unlike the spatial
-tilings (parallel/tiled*.py) which run the carry-capable Pallas sweeps.
-The recurrence here needs a cross-chip `pmin` INSIDE every scan step
-(the min_k L term spans the sharded label axis), and a Pallas kernel
-cannot issue a collective mid-grid-step on this toolchain — the fused
-in-VMEM sweep would have to end, exchange, and relaunch per pixel step,
-which is strictly worse than the lax.scan + pmin structure XLA already
-overlaps.  Spatial tiling shards axes the recurrence only crosses once
-per sweep (halo at tile edges), which is why it is the preferred mode
-and the one the Pallas kernels serve.
+Backend note: this mode is XLA-only by construction.  The recurrence
+needs a cross-device `pmin` inside every scan step (the min_k L term spans
+the sharded label axis), which a kernel cannot issue mid-walk; the
+`lax.scan` + `pmin` structure is the natural form.  Spatial tiling shards
+axes the recurrence only crosses once per sweep (halo at tile edges).
 """
 
 from __future__ import annotations
@@ -35,6 +30,7 @@ import functools
 from typing import Tuple
 
 import jax
+import numpy as np
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
@@ -42,8 +38,8 @@ from fsgm_tpu.params import SGMParams
 from fsgm_tpu.ops.census import census_transform, hamming
 from fsgm_tpu.ops import extract as ext
 
-INF32 = jnp.int32(1 << 28)
-BIG = jnp.int32(1 << 24)
+INF32 = np.int32(1 << 28)
+BIG = np.int32(1 << 24)
 
 
 def _axis_info(axis: str):
@@ -79,7 +75,7 @@ def _neighbor_min_sharded(prev: jnp.ndarray, p1, axis: str):
     from_hi = jnp.where(k == n - 1, INF32, from_hi)
     shift_m = jnp.concatenate([from_lo, prev[:, :-1]], axis=1)
     shift_p = jnp.concatenate([prev[:, 1:], from_hi], axis=1)
-    return jnp.minimum(shift_m, shift_p) + jnp.int32(p1)
+    return jnp.minimum(shift_m, shift_p) + np.int32(p1)
 
 
 def aggregate_one_path_dsharded(cost_t, img, direction: Tuple[int, int],
@@ -107,8 +103,8 @@ def aggregate_one_path_dsharded(cost_t, img, direction: Tuple[int, int],
         pred = jax.lax.dynamic_slice_in_dim(extd, 2 - dy, h, axis=0)
         pred = jnp.roll(pred, dx, axis=1)
         diff = jnp.maximum(jnp.abs(img32 - pred), 1)
-        p2e = jnp.maximum(jnp.int32(p1 + 1), jnp.int32(p2) // diff)
-        p2e = jnp.where(valid, p2e, jnp.int32(p2))
+        p2e = jnp.maximum(np.int32(p1 + 1), np.int32(p2) // diff)
+        p2e = jnp.where(valid, p2e, np.int32(p2))
     else:
         p2e = jnp.full((h, w), p2, dtype=jnp.int32)
 
@@ -142,7 +138,7 @@ def _global_argmin(vals: jnp.ndarray, d_lo, axis: str):
     local_min = jnp.min(vals, axis=-1)
     local_arg = jnp.argmin(vals, axis=-1).astype(jnp.int32) + d_lo
     gmin = jax.lax.pmin(local_min, axis)
-    cand = jnp.where(local_min == gmin, local_arg, jnp.int32(1 << 30))
+    cand = jnp.where(local_min == gmin, local_arg, np.int32(1 << 30))
     garg = jax.lax.pmin(cand, axis)
     return garg, gmin
 

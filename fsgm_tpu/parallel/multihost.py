@@ -1,13 +1,13 @@
 """Multi-host execution (SURVEY.md §2.3, layer L6 "Distribution").
 
-The frame (DP) axis maps across hosts — DCN traffic is only the initial
-frame scatter and final field gather; the chatty per-wavefront halo
-exchange stays on the intra-host ("ty") mesh axis, i.e. ICI on a real pod
-slice (SURVEY.md §2.3 "keep halo traffic strictly on ICI").
+The frame (DP) axis maps across hosts — inter-host traffic is only the
+initial frame scatter and final field gather; the chatty per-wavefront
+halo exchange stays on the intra-host ("ty") mesh axis, between the
+devices of one host (SURVEY.md §2.3).
 
 `init_distributed()` wraps jax.distributed.initialize; `global_mesh()`
-builds the ("frame", "ty") mesh with frame spanning processes.  Works
-identically on a TPU pod slice and on N localhost CPU processes (the
+builds the ("frame", "ty") mesh with frame spanning processes.  The same
+code runs on several GPU hosts and on N localhost CPU processes (the
 multi-host test tier, SURVEY.md §4).
 """
 
@@ -20,7 +20,7 @@ import numpy as np
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Initialize the multi-controller runtime (DCN analog: TCP)."""
+    """Initialize the multi-controller runtime."""
     kwargs = {}
     if coordinator is not None:
         kwargs = dict(coordinator_address=coordinator,
@@ -29,8 +29,8 @@ def init_distributed(coordinator: str | None = None,
 
 
 def global_mesh(frame_per_process: int = 1):
-    """("frame", "ty") mesh: frame axis spans processes (DCN), ty is the
-    per-process spatial axis (ICI).  Requires every process to expose the
+    """("frame", "ty") mesh: frame axis spans processes, ty is the
+    per-process spatial axis.  Requires every process to expose the
     same local device count."""
     n_proc = jax.process_count()
     local = jax.local_device_count()
@@ -48,118 +48,31 @@ def weak_scaling_report(frames_per_s: float, n_hosts: int,
             "weak_scaling_efficiency": round(eff, 4)}
 
 
-# --------------------------------------------------------------------------
-# Analytic weak-scaling projection (round-4 verdict item 6)
-# --------------------------------------------------------------------------
-
-# Measured per-row Mosaic sweep times on 1x TPU v5e, from the round-4
-# profiler trace (tools/traceview.py on the KITTI batch-16 dispatch,
-# 2026-08-20): a 3-direction vertical family sweep ran 12.85 ms for
-# 16 frames x 376 rows.  Seconds per swept row of a (L=128, W=1242)
-# tile, one family:
-MEASURED_T_ROW_S = 12.85e-3 / (16 * 376)
-# v5e ICI: 2D torus, 4 links/chip; public per-link one-way bandwidth
-# ~50 GB/s (1,600 Gbps aggregate).  Neighbor halo pushes ride ONE link.
-ICI_GBPS = 45.0
-ICI_LATENCY_S = 2e-6
-
-
-def project_weak_scaling(h: int = 375, w: int = 1242, d: int = 128,
-                         n_families: int = 4, units_per_family: int = 3,
-                         carry_bytes: int = 2, batch: int = 16,
-                         margin: int = 24,
-                         t_row_s: float = MEASURED_T_ROW_S,
-                         ici_gbps: float = ICI_GBPS) -> list[dict]:
-    """Comm-vs-compute projection of ty-tiled SGM weak scaling on a v5e
-    ICI mesh, for N chips = N row tiles (SURVEY.md §2.2 "SP/CP").
-
-    Per family, per tile boundary, the halo message is the carry state
-    (units, L, W) (aggregate_tr.tr_carry_units; i16 when bounds fit) —
-    ppermute to the downstream neighbor.  Two schedules:
-
-    * exact (wavefront): the ty DAG serializes tiles per family, but
-      down- and up-going families stream in OPPOSITE orders, and with
-      a batch of frames pipelined through, the bubble amortizes to
-      (N-1)/(B+N-1).  Per-step comm overlaps the next tile's sweep
-      unless transfer > tile sweep time.
-    * fast (margin re-injection): no serialization — every tile sweeps
-      margin extra rows (the SGM forgetting bound), one halo exchange,
-      fully parallel: eff ~ H / (H + margin*N) minus comm.
-
-    Returns one record per N with projected efficiency for both modes.
-    The measured anchor t_row_s comes from the round-4 trace; halo
-    bytes are exact; ICI numbers are public v5e figures — assumptions,
-    not measurements, and recorded as such.
-
-    units_per_family=3 is the tr-backend carry of an 8-path vertical
-    family (3 directions x 1 sublane unit each — tr_carry_units); the
-    round-4 table used 2, an undercount the round-5 virtual-mesh
-    calibration exposed (calibrate_weak_scaling_model counts the REAL
-    ppermuted bytes; 16-path knight families carry 9 units).  The halo
-    stays ~us-scale either way, so no r4 conclusion moves."""
-    out = []
-    # the measured row time is for W=1242 tiles; row work scales ~W
-    t_row_s = t_row_s * (w / 1242.0)
-    wp = -(-w // 8) * 8                          # tr lane pad, as shipped
-    halo_bytes = units_per_family * d * wp * carry_bytes
-    t_halo = halo_bytes / (ici_gbps * 1e9) + ICI_LATENCY_S
-    for n in (2, 4, 8, 16):
-        rows = -(-h // n)
-        t_tile = rows * t_row_s                  # one family, one tile
-        # exact: per boundary, comm either hides under the next tile's
-        # sweep or stalls the wave by (t_halo - t_tile)
-        stall = max(0.0, t_halo - t_tile)
-        # batch pipelining: B frames, chain depth N => occupancy
-        occupancy = batch / (batch + n - 1)
-        eff_exact = occupancy * t_tile / (t_tile + stall)
-        # fast: parallel tiles, margin overhead + one exchange
-        t_fast = (rows + margin) * t_row_s + t_halo
-        eff_fast = (h * t_row_s / n) / t_fast
-        out.append({
-            "chips": n, "rows_per_tile": rows,
-            "halo_KB_per_family_boundary": round(halo_bytes / 1024, 1),
-            "t_tile_ms": round(t_tile * 1e3, 3),
-            "t_halo_us": round(t_halo * 1e6, 1),
-            "eff_exact_pct": round(100 * eff_exact, 1),
-            "eff_fast_pct": round(100 * eff_fast, 1),
-            "meets_80pct": bool(eff_fast >= 0.8),
-        })
-    return out
-
-
 def calibrate_weak_scaling_model(h: int = 64, w: int = 48, d: int = 16,
                                  ty: int = 4, margin: int = 8,
                                  num_paths: int = 8) -> dict:
-    """Validate project_weak_scaling's STRUCTURAL terms against counts
-    from the real tiled implementation on the virtual device mesh
-    (round-5 VERDICT item 7: the occupancy/stall model had never been
-    checked against anything).
+    """Check the structural terms of a ty-tiled weak-scaling model
+    against counts from the real tiled implementation on a device mesh.
 
     Runs the exact-wavefront and fast-margin pipelines with the work- and
     halo-instrumentation hooks (parallel.tiled._WORK_CALLBACK /
     _HALO_CALLBACK) and compares, term by term:
 
-      * rows swept per vertical family (exact): model says H (each row
-        aggregated once — the occupancy term assumes no redundant work);
-      * chain depth (exact): model's pipelining term batch/(batch+N-1)
-        assumes N sequential active sweeps per family — counted as the
-        number of active-branch firings;
-      * rows swept per family (fast): model's margin-overhead term
-        assumes H + N*margin;
-      * halo bytes per family boundary: model's t_halo numerator vs the
-        byte size of the actually-ppermuted carry buffers.
+      * rows swept per vertical family (exact): the model says H (each
+        row aggregated once, no redundant work);
+      * chain depth (exact): N sequential active sweeps per family,
+        counted as the number of active-branch firings;
+      * rows swept per family (fast): H + N*margin;
+      * halo bytes per family boundary: the carry the scan backend
+        exchanges, one (2, W, D) int32 state per direction of the family.
 
-    CPU-mesh wall time is meaningless (4-core contention), so only
-    structure is compared — that is exactly the part of the model that
-    is not a stated hardware assumption (t_row, ICI bandwidth/latency).
-    Returns {"exact": {...}, "fast": {...}, "halo": {...}}, each with
-    model/counted pairs and an "ok" flag; test_tiled.py asserts all ok.
-    """
+    Only work and bytes are compared; times need a measurement on the
+    devices themselves.  Returns {"exact": {...}, "fast": {...},
+    "halo": {...}}, each with model/counted pairs and an "ok" flag."""
     import jax.numpy as jnp
     from fsgm_tpu.params import SGMParams, DistParams
     from fsgm_tpu.io.synthetic import random_dot_stereo
     from fsgm_tpu.parallel import tiled
-    from fsgm_tpu.ops.pallas.aggregate_tr import tr_carry_units
 
     img_l, img_r, _ = random_dot_stereo(h, w, d, seed=23)
     p = SGMParams(max_disp=d, p1=7, p2=60, num_paths=num_paths)
@@ -177,7 +90,7 @@ def calibrate_weak_scaling_model(h: int = 64, w: int = 48, d: int = 16,
                               margin=margin)
             out = tiled.stereo_sgm_sharded(
                 jnp.asarray(img_l)[None], jnp.asarray(img_r)[None], p,
-                dist, mesh, "pallas_tr")
+                dist, mesh)
             out.block_until_ready()
             jax.effects_barrier()
         finally:
@@ -186,11 +99,7 @@ def calibrate_weak_scaling_model(h: int = 64, w: int = 48, d: int = 16,
         return work, halo
 
     down = [r for r in p.dirs if r[0] > 0]
-    units = tr_carry_units(down)
-    wp = -(-w // 8) * 8
-    # carry dtype: i16 iff 255 + p2 fits (plan_dtypes)
-    cbytes = 2 if 255 + p.p2 < (1 << 15) else 4
-    model_halo = units * d * wp * cbytes
+    model_halo = len(down) * 2 * w * d * 4
 
     work_e, halo_e = run("exact")
     down_rows = sum(r for t, r in work_e if t == "down")

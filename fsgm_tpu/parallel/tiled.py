@@ -2,11 +2,11 @@
 
 This is the framework's distribution layer (SURVEY.md §2.2/§3.5; the
 reference is single-process with no distribution, so this subsystem is
-TPU-native by design):
+new here):
 
   * mesh axis "frame": data parallelism over independent stereo pairs
-    (maps to DCN across hosts in production);
-  * mesh axis "ty": the image rows are sharded across chips — the
+    (spans hosts in a multi-host run);
+  * mesh axis "ty": the image rows are sharded across devices — the
     sequence/context-parallel analog.  Census uses a small row halo; the
     cost volume, horizontal aggregation paths, and all extraction ops are
     row-local; only the vertical/diagonal path families cross tiles.
@@ -17,8 +17,8 @@ TPU-native by design):
 
 Cross-tile SGM path state is the canonical scan carry of
 `ops.aggregate.aggregate_one_path`: the last two L rows, shape (2, W, D)
-int32, exchanged with `lax.ppermute` over ICI.  Two modes (SURVEY.md §7.3
-item 1):
+int32, exchanged with `lax.ppermute` between neighbouring tiles.  Two
+modes (SURVEY.md §7.3 item 1):
 
   * "exact"  — bit-true wavefront.  Downward and upward path families
     stream in OPPOSITE tile orders simultaneously (device k is active for
@@ -97,9 +97,9 @@ def _split_dirs(dirs: Sequence[Tuple[int, int]]):
 _WORK_CALLBACK = None
 
 # When set, called as f(direction: str, nbytes: int) once per DEVICE per
-# ppermute through _send_down/_send_up with the local message buffer size
-# — the measured-halo side of the weak-scaling model calibration
-# (multihost.calibrate_weak_scaling_model; round-5 VERDICT item 7).
+# ppermute through _send_down/_send_up with the local message size (all
+# leaves of the carry pytree) — the measured-halo side of the weak-scaling
+# model calibration (multihost.calibrate_weak_scaling_model).
 _HALO_CALLBACK = None
 
 
@@ -111,7 +111,8 @@ def _count_work(tag: str, rows: int):
 
 def _count_halo(direction: str, x):
     if _HALO_CALLBACK is not None:
-        nbytes = int(np.prod(x.shape)) * x.dtype.itemsize
+        nbytes = sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+                     for leaf in jax.tree_util.tree_leaves(x))
         jax.debug.callback(
             functools.partial(_HALO_CALLBACK, direction, nbytes),
             jnp.int32(0))
@@ -166,124 +167,9 @@ class _XlaFamilyBackend:
         return s
 
 
-class _PallasFamilyBackend:
-    """Family sweeps via the fused Pallas kernels (ops/pallas), carrying the
-    packed (carry_units, Wp, D) scan state across tile seams — the per-chip
-    hot path of the tiled wavefront (SURVEY.md §3.5: "Pallas kernel on own
-    tile, then ppermute halo")."""
-
-    def __init__(self, cost_t, img_t, above2, below2, p1, p2, adaptive,
-                 label_ext, s_max):
-        from fsgm_tpu.ops.pallas import aggregate_pallas as pagg
-        self.pagg = pagg
-        self.p1, self.p2, self.adaptive = p1, p2, adaptive
-        self.label_ext = label_ext
-        self.w = cost_t.shape[1]
-        self.cost, self.img = pagg.pad_inputs(cost_t, img_t)
-        self.wp = self.img.shape[1]
-        padx = ((0, 0), (0, self.wp - self.w))
-        self.above2 = jnp.pad(above2, padx, mode="edge")
-        self.below2 = jnp.pad(below2, padx, mode="edge")
-        self.s_dtype, self.carry_dt = pagg.plan_dtypes(p2, s_max)
-
-    def zeros_s(self, rows=None):
-        ht = self.cost.shape[0] if rows is None else rows
-        return jnp.zeros((ht, self.wp, self.cost.shape[2]), self.s_dtype)
-
-    def zero_carry(self, family):
-        units = self.pagg.carry_units(family)
-        return jnp.zeros((units, self.wp, self.cost.shape[2]),
-                         self.carry_dt)
-
-    def horiz_sweep(self, s, r):
-        return self.pagg.col_dir_sweep(self.cost, self.img, r, self.p1,
-                                       self.p2, self.adaptive, s,
-                                       self.label_ext)
-
-    def family_sweep(self, s, family, carry, rows=slice(None)):
-        down = family[0][0] > 0
-        return self.pagg.row_family_sweep(
-            self.cost[rows], self.img[rows], family, self.p1, self.p2,
-            self.adaptive, s, self.label_ext, init_carry=carry,
-            return_carry=True,
-            img_above2=self.above2 if down else None,
-            img_below2=None if down else self.below2)
-
-    def finish(self, s):
-        return s[:, : self.w] if self.wp != self.w else s
-
-
-class _TrFamilyBackend:
-    """Family sweeps via the transposed-layout kernels
-    (ops/pallas/aggregate_tr — the round-2 default single-chip backend):
-    the cost arrives LABEL-MAJOR (Ht, L, W) with L already padded to
-    sublane granularity, the S accumulator and the ppermuted carries stay
-    label-major across the wavefront, and finish() transposes to the
-    (Ht, W, L) extraction layout, folding in the row-local horizontal
-    families (vertical scans on the transposed tile, handled whole by
-    aggregate_paths_tr)."""
-
-    def __init__(self, cost_m, img_t, above2, below2, p1, p2, adaptive,
-                 label_ext, s_max):
-        from fsgm_tpu.ops.pallas import aggregate_pallas as pagg
-        from fsgm_tpu.ops.pallas import aggregate_tr as ptr
-        self.ptr = ptr
-        self.p1, self.p2, self.adaptive = p1, p2, adaptive
-        self.label_ext, self.s_max = label_ext, s_max
-        self.cost, self.img = cost_m, img_t
-        self.above2, self.below2 = above2, below2
-        self.ht, self.nd, self.w = cost_m.shape
-        self.s_dtype, self.carry_dt = pagg.plan_dtypes(p2, s_max)
-        self.horiz = []
-
-    def zeros_s(self, rows=None):
-        ht = self.ht if rows is None else rows
-        return jnp.zeros((ht, self.nd, self.w), self.s_dtype)
-
-    def zero_carry(self, family):
-        units = self.ptr.tr_carry_units(family)
-        return jnp.zeros((units, self.nd, self.w), self.carry_dt)
-
-    def horiz_sweep(self, s, r):
-        self.horiz.append(r)            # row-local: folded in at finish()
-        return s
-
-    def family_sweep(self, s, family, carry, rows=slice(None)):
-        down = family[0][0] > 0
-        return self.ptr.tr_family_sweep(
-            self.cost[rows], self.img[rows], family, self.p1, self.p2,
-            self.adaptive, s, label_ext=self.label_ext, init_carry=carry,
-            return_carry=True,
-            img_above2=self.above2 if down else None,
-            img_below2=None if down else self.below2)
-
-    def finish(self, s):
-        out = jnp.transpose(s, (0, 2, 1))           # -> (Ht, W, L)
-        if self.horiz:
-            sh = self.ptr.aggregate_paths_tr(
-                self.cost, self.img, self.horiz, self.p1, self.p2,
-                self.adaptive, label_ext=self.label_ext, s_max=self.s_max)
-            out = out + sh.astype(out.dtype)
-        return out
-
-
-def _make_backend(backend, cost_t, img_t, above2, below2, p1, p2, adaptive,
-                  neighbor_min, label_ext, s_max):
-    if backend == "pallas_tr":
-        return _TrFamilyBackend(cost_t, img_t, above2, below2, p1, p2,
-                                adaptive, label_ext, s_max)
-    if backend == "pallas":
-        return _PallasFamilyBackend(cost_t, img_t, above2, below2, p1, p2,
-                                    adaptive, label_ext, s_max)
-    return _XlaFamilyBackend(cost_t, img_t, above2, below2, p1, p2,
-                             adaptive, neighbor_min)
-
-
 def _aggregate_tiled_exact(cost_t, img_t, above2, below2, dirs, p1, p2,
                            adaptive, axis: str, t: int,
-                           neighbor_min=agg.neighbor_min_1d,
-                           backend: str = "xla", label_ext=None,
-                           s_max=None):
+                           neighbor_min=agg.neighbor_min_1d):
     """Bit-true wavefront aggregation of a row tile.  above2/below2 are the
     (2, W) image halos [y=-2, y=-1] and [y=Ht, y=Ht+1].
 
@@ -296,8 +182,8 @@ def _aggregate_tiled_exact(cost_t, img_t, above2, below2, dirs, p1, p2,
     opposite tile orders so both wavefronts overlap."""
     my = jax.lax.axis_index(axis)
     horiz, down, up = _split_dirs(dirs)
-    be = _make_backend(backend, cost_t, img_t, above2, below2, p1, p2,
-                       adaptive, neighbor_min, label_ext, s_max)
+    be = _XlaFamilyBackend(cost_t, img_t, above2, below2, p1, p2,
+                           adaptive, neighbor_min)
 
     s = be.zeros_s()
     for r in horiz:  # row-local
@@ -328,9 +214,7 @@ def _aggregate_tiled_exact(cost_t, img_t, above2, below2, dirs, p1, p2,
 
 def _aggregate_tiled_fast(cost_t, img_t, above2, below2, dirs, p1, p2,
                           adaptive, axis: str, t: int, margin: int,
-                          neighbor_min=agg.neighbor_min_1d,
-                          backend: str = "xla", label_ext=None,
-                          s_max=None):
+                          neighbor_min=agg.neighbor_min_1d):
     """Two-pass margin re-injection (approximate across tile seams unless
     margin >= forgetting_margin AND tiles are at least that tall — see
     params.forgetting_margin).  All devices stay active in both passes:
@@ -344,8 +228,8 @@ def _aggregate_tiled_fast(cost_t, img_t, above2, below2, dirs, p1, p2,
     horiz, down, up = _split_dirs(dirs)
     ht = cost_t.shape[0]
     m = min(margin, ht)
-    be = _make_backend(backend, cost_t, img_t, above2, below2, p1, p2,
-                       adaptive, neighbor_min, label_ext, s_max)
+    be = _XlaFamilyBackend(cost_t, img_t, above2, below2, p1, p2,
+                           adaptive, neighbor_min)
 
     s = be.zeros_s()
     for r in horiz:
@@ -377,9 +261,9 @@ def _aggregate_tiled_fast(cost_t, img_t, above2, below2, dirs, p1, p2,
 
 def _globalize_cost(cost, in_img, d_valid, invalid_cost):
     """Column-tiled cost fixup in GLOBAL coordinates: out-of-image window
-    columns get cost 0 (the NEUTRAL pad value — a zero carry region
-    reproduces golden image-edge semantics, see aggregate_pallas.pad_inputs)
-    and in-image columns with a globally out-of-range match get
+    columns get cost 0 (the NEUTRAL pad value — a path crossing zero-cost
+    columns from the window edge keeps L = 0, the neutral state, so the
+    first in-image pixel takes L = C as at a real image edge) and in-image columns with a globally out-of-range match get
     invalid_cost.  Only ever forces values, so it composes with the local
     builder's own (stricter-nowhere) masking."""
     cost = jnp.where(d_valid[None, :, :], cost,
@@ -387,8 +271,7 @@ def _globalize_cost(cost, in_img, d_valid, invalid_cost):
     return jnp.where(in_img[None, :, None], cost, jnp.asarray(0, cost.dtype))
 
 def _stereo_tile(img_l_t, img_r_t, params: SGMParams, dist: DistParams,
-                 axis: str, t: int, backend: str = "xla",
-                 gx=None, w_global: int | None = None):
+                 axis: str, t: int, gx=None, w_global: int | None = None):
     """Row-tile stereo pipeline body: (Ht, W) pair -> (Ht, W) disparity.
 
     gx / w_global (column-tiled mode): gx is the (W,) GLOBAL x coordinate
@@ -418,44 +301,20 @@ def _stereo_tile(img_l_t, img_r_t, params: SGMParams, dist: DistParams,
         above2 = guide_ext[halo - 2: halo]
         ht = guide_t.shape[0]
         below2 = guide_ext[halo + ht: halo + ht + 2]
-        nd = cost_v.shape[2]
-        if backend == "pallas_tr":
-            # the tr backends consume the LABEL-MAJOR layout; pad labels
-            # to sublane granularity with invalid-cost planes (never
-            # minimal — aggregate_tr pad-plane contract) and slice after
-            ndp = -(-nd // 8) * 8
-            cost_v = jnp.transpose(cost_v, (0, 2, 1))
-            if ndp != nd:
-                cost_v = jnp.pad(cost_v, ((0, 0), (0, ndp - nd), (0, 0)),
-                                 constant_values=params.invalid_cost)
         if dist.tile_mode == "exact" and t > 1:
             s = _aggregate_tiled_exact(
                 cost_v, guide_t, above2, below2, params.dirs, params.p1,
-                params.p2, params.adaptive_p2, axis, t, backend=backend,
-                s_max=params.s_invalid)
+                params.p2, params.adaptive_p2, axis, t)
         elif t > 1:
             margin = dist.margin or forgetting_margin(
                 params.p1, params.p2, cmax=params.invalid_cost)
             s = _aggregate_tiled_fast(
                 cost_v, guide_t, above2, below2, params.dirs, params.p1,
-                params.p2, params.adaptive_p2, axis, t, margin,
-                backend=backend, s_max=params.s_invalid)
-        elif backend == "pallas_tr":
-            from fsgm_tpu.ops.pallas import aggregate_tr as ptr
-            s = ptr.aggregate_paths_tr(cost_v, guide_t, params.dirs,
-                                       params.p1, params.p2,
-                                       params.adaptive_p2,
-                                       s_max=params.s_invalid)
-        elif backend == "pallas":
-            from fsgm_tpu.ops.pallas import aggregate_pallas as pagg
-            s = pagg.aggregate_paths(cost_v, guide_t, params.dirs,
-                                     params.p1, params.p2,
-                                     params.adaptive_p2,
-                                     s_max=params.s_invalid)
+                params.p2, params.adaptive_p2, axis, t, margin)
         else:
             s = agg.aggregate_paths(cost_v, guide_t, params.dirs, params.p1,
                                     params.p2, params.adaptive_p2)
-        return s[:, :, :nd] if s.shape[2] != nd else s
+        return s
 
     s = aggregate(cost, img_l_t, il_ext)
 
@@ -503,8 +362,7 @@ def _stereo_tile(img_l_t, img_r_t, params: SGMParams, dist: DistParams,
 
 
 def _stereo_tile_tx(img_l_t, img_r_t, params: SGMParams, dist: DistParams,
-                    axis: str, t: int, tx_axis: str, tx: int,
-                    backend: str = "xla"):
+                    axis: str, t: int, tx_axis: str, tx: int):
     """Column-tiled pipeline body (SURVEY.md §2.2 SP "(TY, TX) blocks"):
     (Ht, Wt) shard -> (Ht, Wt) disparity.
 
@@ -545,24 +403,13 @@ def _stereo_tile_tx(img_l_t, img_r_t, params: SGMParams, dist: DistParams,
 
     gx = x0 - ex + jnp.arange(wt + 2 * ex, dtype=jnp.int32)
     disp = _stereo_tile(window(img_l_t), window(img_r_t), params, dist,
-                        axis, t, backend, gx=gx, w_global=w)
+                        axis, t, gx=gx, w_global=w)
     return disp[:, ex: ex + wt]
 
 
-def _resolve_backend(backend: str) -> str:
-    """'auto' -> platform pick; 'pallas' -> the transposed-layout default
-    unless FSGM_TR=0 (models.stereo.resolve_backend).  Called OUTSIDE the
-    jitted entry points so the resolved name is the jit cache key."""
-    from fsgm_tpu.models.stereo import resolve_backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
-    return resolve_backend(backend)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
 def _stereo_sgm_sharded_jit(img_l, img_r, params: SGMParams,
-                            dist: DistParams, mesh: jax.sharding.Mesh,
-                            backend: str):
+                            dist: DistParams, mesh: jax.sharding.Mesh):
     t = mesh.shape["ty"]
     tx = mesh.shape.get("tx", 1)
 
@@ -570,10 +417,10 @@ def _stereo_sgm_sharded_jit(img_l, img_r, params: SGMParams,
         if tx > 1:
             run = functools.partial(_stereo_tile_tx, params=params,
                                     dist=dist, axis="ty", t=t,
-                                    tx_axis="tx", tx=tx, backend=backend)
+                                    tx_axis="tx", tx=tx)
         else:
             run = functools.partial(_stereo_tile, params=params, dist=dist,
-                                    axis="ty", t=t, backend=backend)
+                                    axis="ty", t=t)
         return jax.vmap(run)(il, ir)
 
     spec = P("frame", "ty", "tx") if tx > 1 else P("frame", "ty", None)
@@ -586,16 +433,13 @@ def _stereo_sgm_sharded_jit(img_l, img_r, params: SGMParams,
 
 
 def stereo_sgm_sharded(img_l, img_r, params: SGMParams, dist: DistParams,
-                       mesh: jax.sharding.Mesh, backend: str = "auto"):
+                       mesh: jax.sharding.Mesh):
     """Batched sharded stereo: (F, H, W) uint8 pairs -> (F, H, W) float32.
 
     F is sharded over mesh axis "frame" (DP), rows over "ty" and columns
     over "tx" (spatial; omit "tx" from the mesh for row-only tiling).
     H (resp. W) must divide evenly by the "ty" (resp. "tx") axis size.
-    backend 'pallas' runs the fused family-sweep kernels per tile (the
-    production TPU path; resolves to the transposed-layout kernels unless
-    FSGM_TR=0); 'xla' the lax.scan fallback; 'auto' picks by platform.
-    Column tiling uses the margin-window construction (_stereo_tile_tx):
+    Tiles aggregate with the `lax.scan` carry API (ops/aggregate.py) on
+    every platform.  Column tiling uses the margin-window construction (_stereo_tile_tx):
     bit-exact at the auto margin in BOTH tile modes."""
-    return _stereo_sgm_sharded_jit(img_l, img_r, params, dist, mesh,
-                                   _resolve_backend(backend))
+    return _stereo_sgm_sharded_jit(img_l, img_r, params, dist, mesh)

@@ -1,7 +1,7 @@
 """Multi-device tiled fSGM flow (SURVEY.md §2.2 / BASELINE config 5).
 
-Same mesh as stereo: "frame" = DP over pairs (DCN), "ty" = row tiling with
-SGM path-state wavefronts (ICI).  Flow-specific differences:
+Same mesh as stereo: "frame" = DP over pairs, "ty" = row tiling with SGM
+path-state wavefronts.  Flow-specific differences:
 
   * The 2D search targets are vertically unbounded (prior flow can point
     anywhere), so the SECOND image's census is computed on the full image
@@ -42,7 +42,7 @@ def _all_gather_rows(x_t, axis: str):
 
 def _flow_level_tile(i1_t, i2_full, prior_flow_t, params: FlowParams,
                      dist: DistParams, axis: str, t: int,
-                     is_coarsest: bool = False, backend: str = "xla"):
+                     is_coarsest: bool = False):
     """One pyramid level on a row tile; i2_full is the full second image."""
     ht = i1_t.shape[0]
     my = jax.lax.axis_index(axis)
@@ -61,70 +61,27 @@ def _flow_level_tile(i1_t, i2_full, prior_flow_t, params: FlowParams,
     flow_ext = _exchange_row_halo(prior_flow_t, r, axis, t)
     base_u = jnp.rint(flow_ext[..., 0]).astype(jnp.int32)
     base_v = jnp.rint(flow_ext[..., 1]).astype(jnp.int32)
-    if backend == "pallas_tr":
-        # transposed-layout sweeps consume the label-MAJOR volume directly
-        # (no butterfly transpose; labels pad to sublane granularity —
-        # 81 -> 88 instead of the 128-lane pad)
-        from fsgm_tpu.ops.cost import cost_volume_flow_major
-        ext_w0 = params.window_extent
-        cost = cost_volume_flow_major(
-            cen1, cen2, base_u, base_v, params.search_radius,
-            params.invalid_cost, y_offset=y0, identity_base=is_coarsest,
-            nd_pad=-(-ext_w0 * ext_w0 // 8) * 8)
-    elif backend == "pallas":
-        # label-major build + butterfly transpose (see models/flow.py /
-        # transpose_pallas.py: the label-minor stack scalarizes into
-        # custom-call operands, ~32 ms/level at KITTI size).  The sweeps
-        # run at the padded 128-lane count; S is sliced back after.
-        from fsgm_tpu.ops.cost import cost_volume_flow_major
-        from fsgm_tpu.ops.pallas import transpose_pallas
-        cost = transpose_pallas.label_minor_from_major(
-            cost_volume_flow_major(
-                cen1, cen2, base_u, base_v, params.search_radius,
-                params.invalid_cost, y_offset=y0,
-                identity_base=is_coarsest,
-                nd_pad=transpose_pallas.T))[:, :i1_t.shape[1]]
-    else:
-        cost = cost_volume_flow(cen1, cen2, base_u, base_v,
-                                params.search_radius, params.invalid_cost,
-                                y_offset=y0, identity_base=is_coarsest)
+    cost = cost_volume_flow(cen1, cen2, base_u, base_v,
+                            params.search_radius, params.invalid_cost,
+                            y_offset=y0, identity_base=is_coarsest)
 
     above2 = i1_ext[halo - 2: halo]
     below2 = i1_ext[halo + ht: halo + ht + 2]
     nm = agg.make_neighbor_min_2d(params.search_radius)
-    ext_w = params.window_extent
-    s_max = 8 * (params.invalid_cost + params.p2)
     if t > 1 and dist.tile_mode == "exact":
         s = _aggregate_tiled_exact(cost, i1_t, above2, below2, DIRS_8,
                                    params.p1, params.p2, params.adaptive_p2,
-                                   axis, t, neighbor_min=nm,
-                                   backend=backend, label_ext=ext_w,
-                                   s_max=s_max)
+                                   axis, t, neighbor_min=nm)
     elif t > 1:
         from fsgm_tpu.params import forgetting_margin
         margin = dist.margin or forgetting_margin(
             params.p1, params.p2, cmax=params.invalid_cost)
         s = _aggregate_tiled_fast(cost, i1_t, above2, below2, DIRS_8,
                                   params.p1, params.p2, params.adaptive_p2,
-                                  axis, t, margin, neighbor_min=nm,
-                                  backend=backend, label_ext=ext_w,
-                                  s_max=s_max)
-    elif backend == "pallas_tr":
-        from fsgm_tpu.ops.pallas import aggregate_tr as ptr
-        s = ptr.aggregate_paths_tr(cost, i1_t, DIRS_8, params.p1, params.p2,
-                                   params.adaptive_p2, label_ext=ext_w,
-                                   s_max=s_max)
-    elif backend == "pallas":
-        from fsgm_tpu.ops.pallas import aggregate_pallas as pagg
-        s = pagg.aggregate_paths(cost, i1_t, DIRS_8, params.p1, params.p2,
-                                 params.adaptive_p2, label_ext=ext_w,
-                                 s_max=s_max)
+                                  axis, t, margin, neighbor_min=nm)
     else:
         s = agg.aggregate_paths(cost, i1_t, DIRS_8, params.p1, params.p2,
                                 params.adaptive_p2, neighbor_min=nm)
-
-    if backend in ("pallas", "pallas_tr"):
-        s = s[:, :, :ext_w * ext_w]     # drop the invalid-cost pad labels
 
     du, dv, l_int = mflow.wta_flow(s, params.search_radius)
     u = (base_u[r:-r] + du).astype(jnp.float32)
@@ -142,8 +99,8 @@ def _flow_level_tile(i1_t, i2_full, prior_flow_t, params: FlowParams,
 
 
 def _flow_oneway_tile(img1_t, img2_t, params: FlowParams, dist: DistParams,
-                      axis: str, t: int, backend: str = "xla",
-                      stop_level: int = 0, final_params=None):
+                      axis: str, t: int, stop_level: int = 0,
+                      final_params=None):
     """Coarse-to-fine pass on row tiles down to `stop_level` (0 = full
     resolution).  `final_params` (if given) replaces `params` for the
     finest level run — the fb_backward="cheap" final-level skip; earlier
@@ -159,15 +116,14 @@ def _flow_oneway_tile(img1_t, img2_t, params: FlowParams, dist: DistParams,
         p_lvl = (final_params if lvl == stop_level
                  and final_params is not None else params)
         flow = _flow_level_tile(i1, pyr2[lvl], flow, p_lvl, dist, axis, t,
-                                is_coarsest=(lvl == params.levels - 1),
-                                backend=backend)
+                                is_coarsest=(lvl == params.levels - 1))
     return flow
 
 
 def _flow_tile(img1_t, img2_t, params: FlowParams, dist: DistParams,
-               axis: str, t: int, backend: str = "xla"):
+               axis: str, t: int):
     import dataclasses
-    flow = _flow_oneway_tile(img1_t, img2_t, params, dist, axis, t, backend)
+    flow = _flow_oneway_tile(img1_t, img2_t, params, dist, axis, t)
     valid = jnp.ones(flow.shape[:2], dtype=bool)
     if params.fb_check:
         # backward-pass variants mirror models/flow.py::flow_fsgm exactly
@@ -177,16 +133,16 @@ def _flow_tile(img1_t, img2_t, params: FlowParams, dist: DistParams,
         if params.fb_backward == "single":
             img1_full = _all_gather_rows(img1_t, axis)
             bwd_t = _flow_level_tile(img2_t, img1_full, -flow, nosub,
-                                     dist, axis, t, backend=backend)
+                                     dist, axis, t)
         elif params.fb_backward == "half":
             bwd_half = _flow_oneway_tile(img2_t, img1_t, params, dist,
-                                         axis, t, backend, stop_level=1)
+                                         axis, t, stop_level=1)
             bwd_t = mflow.upsample_flow_2x(bwd_half, flow.shape[0],
                                            flow.shape[1])
         else:
             fp = nosub if params.fb_backward == "cheap" else None
             bwd_t = _flow_oneway_tile(img2_t, img1_t, params, dist, axis,
-                                      t, backend, final_params=fp)
+                                      t, final_params=fp)
         bwd_full = _all_gather_rows(bwd_t, axis)
         ht = flow.shape[0]
         my = jax.lax.axis_index(axis)
@@ -209,23 +165,21 @@ def _fb_check_tiled(flow_fwd_t, flow_bwd_full, y0, max_diff):
     inb = (tx >= 0) & (tx < w) & (ty >= 0) & (ty < hg)
     txc = jnp.clip(tx, 0, w - 1)
     tyc = jnp.clip(ty, 0, hg - 1)
-    # flattened linear-index take, same lowering win as models/flow.py::
-    # fb_check (tools/fbbench.py: 4.2 vs 5.8 ms at KITTI size)
+    # flattened linear-index take, as in models/flow.py::fb_check
     b = jnp.take(flow_bwd_full.reshape(hg * w, 2), tyc * w + txc, axis=0)
     err = jnp.sqrt((flow_fwd_t[..., 0] + b[..., 0]) ** 2
                    + (flow_fwd_t[..., 1] + b[..., 1]) ** 2)
     return inb & (err <= max_diff)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
 def _flow_fsgm_sharded_jit(img1, img2, params: FlowParams,
-                           dist: DistParams, mesh: jax.sharding.Mesh,
-                           backend: str):
+                           dist: DistParams, mesh: jax.sharding.Mesh):
     t = mesh.shape["ty"]
 
     def body(i1, i2):
         run = functools.partial(_flow_tile, params=params, dist=dist,
-                                axis="ty", t=t, backend=backend)
+                                axis="ty", t=t)
         return jax.vmap(run)(i1, i2)
 
     in_spec = P("frame", "ty", None)
@@ -237,13 +191,14 @@ def _flow_fsgm_sharded_jit(img1, img2, params: FlowParams,
 
 
 def flow_fsgm_sharded(img1, img2, params: FlowParams, dist: DistParams,
-                      mesh: jax.sharding.Mesh, backend: str = "auto"):
+                      mesh: jax.sharding.Mesh):
     """Batched sharded flow: (F, H, W) uint8 pairs ->
     (flow (F, H, W, 2) f32, valid (F, H, W) bool).
 
     F over "frame", rows over "ty"; H must divide by ty * 2^(levels-1).
-    Backend resolution (env-dependent) happens outside the jit so the
-    resolved name is the cache key (mirrors stereo_sgm_sharded)."""
-    from fsgm_tpu.parallel.tiled import _resolve_backend
-    return _flow_fsgm_sharded_jit(img1, img2, params, dist, mesh,
-                                  _resolve_backend(backend))
+    The FB check runs on the full grid (fb_grid='full') only."""
+    if params.fb_check and params.fb_grid != "full":
+        raise NotImplementedError(
+            f"tiled flow checks FB on the full grid only, got "
+            f"fb_grid={params.fb_grid!r}")
+    return _flow_fsgm_sharded_jit(img1, img2, params, dist, mesh)

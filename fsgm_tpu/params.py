@@ -113,8 +113,8 @@ class FlowParams:
     subpixel: bool = True              # separable 2D parabola
     fb_check: bool = True              # forward-backward consistency (finest level)
     fb_max_diff: float = 1.0
-    # Backward-pass variant for fb_check (VERDICT r1 item 5; golden
-    # mirrors each mode exactly).  Intermediate backward levels always
+    # Backward-pass variant for fb_check (golden mirrors each mode
+    # exactly).  Intermediate backward levels always
     # keep subpixel + median — they feed the next level's prior, and
     # skipping either compounds through the 2x upsampling into outliers
     # that wreck the check (measured in models/flow.py).
@@ -138,7 +138,7 @@ class FlowParams:
     #            with tolerance fb_max_diff/2 (the same physical mismatch
     #            measures half as many pixels there), validity plane
     #            2x-upsampled.  Quarters the check's gather indices (the
-    #            cost driver, NOTES-PERF) at the price of a 2x-blockier
+    #            check's cost driver) at the price of a 2x-blockier
     #            validity plane; accuracy measured by tools/fb_accuracy.py.
     fb_grid: str = "full"
     median_filter: bool = True
@@ -173,9 +173,9 @@ class FlowParams:
 class DistParams:
     """Distribution configuration (SURVEY.md §2.2/§2.3).
 
-    tiles_y/tiles_x shard the image spatially across chips (halo-wavefront
-    exchange over ICI); frame_axis shards independent frames across hosts
-    (DCN).  tile_mode 'exact' = bit-true wavefront; 'fast' = two-pass margin
+    tiles_y/tiles_x shard the image spatially across devices (halo-wavefront
+    exchange between neighbouring tiles); frame_shards shards independent
+    frames across devices and hosts.  tile_mode 'exact' = bit-true wavefront; 'fast' = two-pass margin
     re-injection (SURVEY.md §7.3 item 1).
     """
 

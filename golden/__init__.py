@@ -1,9 +1,9 @@
 """Golden CPU reference model (NumPy + C++ mirror in golden/cpp/).
 
-This package is the parity oracle for the TPU framework: the reference
+This package is the parity oracle for the JAX pipeline: the reference
 checkout at /root/reference was empty at survey time (SURVEY.md §0), and
 BASELINE.json config 1 designates a "CPU-runnable ref" — this is it.
-Everything census -> S is integer arithmetic, so TPU kernels are tested for
+Everything census -> S is integer arithmetic, so the device paths are tested for
 EXACT equality against this model (SURVEY.md §4).
 """
 

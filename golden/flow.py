@@ -10,7 +10,7 @@ consistency at the finest level; per-level median filtering.
 Smoothness convention: the P1/P2 penalty acts on LABEL indices (window
 offsets), not absolute flow vectors — neighboring pixels with different
 rounded prior flow therefore see a P2-like jump, matching the common
-hierarchical-SGM-flow simplification.  Documented here once; the TPU model
+hierarchical-SGM-flow simplification.  Documented here once; the JAX model
 must match exactly.
 """
 
@@ -102,10 +102,9 @@ def cost_volume_flow(cen1: np.ndarray, cen2: np.ndarray,
                      radius: int, invalid_cost: int = 255) -> np.ndarray:
     """C[y, x, l] over labels l = (dv + w) * (2w+1) + (du + w).
 
-    Warp-then-shift formulation (the classical coarse-to-fine recipe, and
-    the only one that maps to TPU hardware: a per-pixel-per-label gather
-    is ~400 ms/frame on TPU, a single per-pixel warp plus static window
-    shifts is ~100x cheaper):
+    Warp-then-shift formulation (the classical coarse-to-fine recipe: a
+    single per-pixel warp plus static window shifts instead of a
+    per-pixel-per-label gather):
 
       1. warp the second image's census by the rounded prior flow once:
          cen2w[y, x] = cen2[y + base_v, x + base_u];

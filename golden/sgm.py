@@ -6,7 +6,7 @@ aggregation (8/16 paths, optional adaptive P2), WTA, quadratic subpixel,
 LR-consistency via the S-volume trick, and 3x3 median filter.
 
 Design rules:
-  * Integer arithmetic (int64 internally) from census through S, so any TPU
+  * Integer arithmetic (int64 internally) from census through S, so any device
     kernel bug is a hard mismatch, not an epsilon (SURVEY.md §4).
   * Vectorized over scanline x disparity; only the sequential DP axis is a
     Python loop, mirroring the recurrence structure in SURVEY.md §3.3.

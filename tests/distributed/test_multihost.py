@@ -2,7 +2,7 @@
 
 Each process exposes 4 virtual devices; the global ("frame"=2, "ty"=4)
 mesh runs the tiled stereo pipeline with the frame axis spanning processes
-(the DCN analog) and halo wavefronts inside each process (the ICI analog).
+(the cross-host axis) and halo wavefronts inside each process.
 Result must be bit-identical to the single-process reference.
 """
 

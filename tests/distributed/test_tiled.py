@@ -60,54 +60,18 @@ def test_fast_tiled_close(pair):
     assert mismatch < 0.05, f"fast-mode mismatch {mismatch:.3f}"
 
 
-@pytest.mark.parametrize("backend", ["pallas", "pallas_tr"])
-@pytest.mark.parametrize("frame,ty", [(1, 4), (2, 2)])
-@pytest.mark.parametrize("num_paths,adaptive", [(8, False), (16, True)])
-def test_exact_tiled_pallas_backend(pair, frame, ty, num_paths, adaptive,
-                                    backend):
-    """Tiled wavefront running the fused Pallas family sweeps per tile
-    (carry init/export through the kernels) == single-device result —
-    both kernel generations (lane-major and transposed-layout)."""
-    img_l, img_r, _ = pair
-    p = SGMParams(max_disp=16, p1=7, p2=60, num_paths=num_paths,
-                  adaptive_p2=adaptive)
-    ref = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p))
-
-    il = jnp.asarray(np.stack([img_l] * frame))
-    ir = jnp.asarray(np.stack([img_r] * frame))
-    dist = DistParams(tiles_y=ty, frame_shards=frame, tile_mode="exact")
-    out = np.asarray(stereo_sgm_sharded(il, ir, p, dist, _mesh(frame, ty),
-                                        backend))
-    for f in range(frame):
-        np.testing.assert_array_equal(out[f], ref)
-
-
-@pytest.mark.parametrize("backend", ["pallas", "pallas_tr"])
-def test_fast_tiled_pallas_backend(pair, backend):
-    """Fast mode through the Pallas sweeps, auto margin -> bit-exact
-    whenever tiles are taller than the forgetting bound (2x24 rows here is
-    NOT, so compare against the XLA fast mode instead: both backends must
-    agree bit-exactly since they run the same math)."""
-    img_l, img_r, _ = pair
-    p = SGMParams(max_disp=16, p1=7, p2=60)
-    dist = DistParams(tiles_y=4, tile_mode="fast", margin=8)
-    ref = np.asarray(stereo_sgm_sharded(
-        img_l[None], img_r[None], p, dist, _mesh(1, 4), "xla"))[0]
-    out = np.asarray(stereo_sgm_sharded(
-        img_l[None], img_r[None], p, dist, _mesh(1, 4), backend))[0]
-    np.testing.assert_array_equal(out, ref)
-
-
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_tr"])
-def test_exact_tiled_lr_reagg(pair, backend):
+@pytest.mark.parametrize("ref_backend", ["xla", "triton_interpret"])
+def test_exact_tiled_lr_reagg(pair, ref_backend):
     """lr_mode='reagg' under tiling: the right-volume wavefront must also
-    be bit-exact vs the single-device reagg pipeline."""
+    be bit-exact vs the single-device reagg pipeline on either
+    aggregation backend."""
     img_l, img_r, _ = pair
     p = SGMParams(max_disp=16, p1=7, p2=60, lr_mode="reagg")
-    ref = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p))
+    ref = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p,
+                                ref_backend))
     dist = DistParams(tiles_y=4, tile_mode="exact")
     out = np.asarray(stereo_sgm_sharded(
-        img_l[None], img_r[None], p, dist, _mesh(1, 4), backend))[0]
+        img_l[None], img_r[None], p, dist, _mesh(1, 4)))[0]
     np.testing.assert_array_equal(out, ref)
 
 
@@ -115,7 +79,7 @@ def test_exact_wavefront_work_accounting():
     """The lax.cond schedule must SKIP inactive tiles at runtime: total
     vertical-family rows actually swept across all devices must be H per
     family (each row aggregated once), not H * t as the old masked
-    redundant-recompute construction did (VERDICT r1 'What's weak' #1).
+    redundant-recompute construction did.
     Counted via jax.debug.callback, which only fires from the branch that
     actually executes."""
     from fsgm_tpu.parallel import tiled
@@ -147,12 +111,10 @@ def test_exact_wavefront_work_accounting():
 
 
 def test_weak_scaling_model_calibration():
-    """The analytic weak-scaling projection's STRUCTURAL terms (work per
-    family, chain depth, fast-mode margin overhead, halo message bytes)
-    must match what the real tiled implementation actually does on the
-    virtual mesh (round-5 VERDICT item 7 — previously the model was
-    uncalibrated).  The remaining model inputs (t_row, ICI figures) are
-    stated hardware assumptions, not checkable here."""
+    """A weak-scaling model's STRUCTURAL terms (work per family, chain
+    depth, fast-mode margin overhead, halo message bytes) must match what
+    the real tiled implementation actually does on the virtual mesh.
+    Times need the devices themselves and are not checkable here."""
     from fsgm_tpu.parallel.multihost import calibrate_weak_scaling_model
     res = calibrate_weak_scaling_model(h=64, w=48, d=16, ty=4, margin=8)
     assert res["exact"]["ok"], res
@@ -193,18 +155,6 @@ def test_column_tiled_variants(pair, num_paths, adaptive, lr_mode):
     dist = DistParams(tiles_y=2, tiles_x=2, tile_mode="exact")
     out = np.asarray(stereo_sgm_sharded(
         img_l[None], img_r[None], p, dist, _mesh3(1, 2, 2)))[0]
-    np.testing.assert_array_equal(out, ref)
-
-
-@pytest.mark.parametrize("backend", ["pallas", "pallas_tr"])
-def test_column_tiled_pallas_backend(pair, backend):
-    """tx windows through the fused Pallas sweeps (interpret mode)."""
-    img_l, img_r, _ = pair
-    p = SGMParams(max_disp=16, p1=7, p2=60)
-    ref = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p))
-    dist = DistParams(tiles_y=2, tiles_x=2, tile_mode="exact")
-    out = np.asarray(stereo_sgm_sharded(
-        img_l[None], img_r[None], p, dist, _mesh3(1, 2, 2), backend))[0]
     np.testing.assert_array_equal(out, ref)
 
 

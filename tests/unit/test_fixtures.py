@@ -23,6 +23,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2] / "tools"))
 import freeze_fixtures as ff  # noqa: E402
 
 FIXDIR = Path(__file__).resolve().parents[1] / "fixtures"
+# the XLA scan and the GPU kernel (through the Pallas interpreter here)
+BACKENDS = ["xla", "triton_interpret"]
 
 
 def _load(name):
@@ -58,7 +60,7 @@ def test_golden_flow_matches_frozen(name):
 
 
 @pytest.mark.parametrize("name", sorted(ff.STEREO_CASES))
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_tr"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_pipeline_stereo_matches_frozen(name, backend):
     """The jit pipeline vs the FROZEN fixture (not the live oracle):
     catches correlated drift that regenerating goldens would mask."""
@@ -81,22 +83,24 @@ def test_golden_sequence_matches_frozen(name):
 
 
 @pytest.mark.parametrize("name", sorted(ff.SEQ_CASES))
-def test_pipeline_sequence_matches_frozen(name):
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pipeline_sequence_matches_frozen(name, backend):
     from fsgm_tpu.models.flow import flow_sequence
     fx = _load(name)
     h, w, u, v, n, seed, kw = ff.SEQ_CASES[name]
     flows, valids = flow_sequence(jnp.asarray(fx["frames"]),
-                                  FlowParams(**kw), "xla")
+                                  FlowParams(**kw), backend)
     np.testing.assert_array_equal(np.asarray(valids), fx["valids"])
     np.testing.assert_allclose(np.asarray(flows), fx["flows"], atol=1e-3)
 
 
 @pytest.mark.parametrize("name", sorted(ff.FLOW_CASES))
-def test_pipeline_flow_matches_frozen(name):
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pipeline_flow_matches_frozen(name, backend):
     fx = _load(name)
     h, w, u, v, seed, kw = ff.FLOW_CASES[name]
     flow, valid = flow_fsgm(jnp.asarray(fx["img1"]),
                             jnp.asarray(fx["img2"]), FlowParams(**kw),
-                            "pallas")
+                            backend)
     np.testing.assert_array_equal(np.asarray(valid), fx["valid"])
     np.testing.assert_allclose(np.asarray(flow), fx["flow"], atol=1e-3)

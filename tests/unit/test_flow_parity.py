@@ -1,4 +1,5 @@
-"""fSGM flow parity: JAX pipeline (XLA and Pallas backends) vs golden.
+"""fSGM flow parity: JAX pipeline (XLA scan and GPU kernel backends) vs
+golden; the kernel runs through the Pallas interpreter here.
 
 SURVEY.md §4: integer stages exact (cost volume, S, WTA labels); float
 stages (subpixel, median, fb-check) within float32 tolerance; synthetic
@@ -18,6 +19,8 @@ from fsgm_tpu.models import flow as jflow
 
 import golden.flow as gf
 import golden.sgm as gs
+
+BACKENDS = ["xla", "triton_interpret"]
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +54,7 @@ def test_pyramid_exact(pair):
         np.testing.assert_array_equal(np.asarray(o), g)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_tr"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_flow_full_close_to_golden(pair, backend):
     img1, img2, _ = pair
     p = FlowParams(search_radius=3, levels=3, p1=7, p2=60)
@@ -65,7 +68,7 @@ def test_flow_full_close_to_golden(pair, backend):
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_tr"])
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("mode", ["cheap", "single", "half"])
 def test_flow_backward_mode_parity(pair, backend, mode):
     # fb_backward variants change only the backward pass feeding fb_check;
@@ -134,13 +137,13 @@ def test_flow_blockwise_motion():
     assert np.mean(epe <= 1.0) > 0.8, f"EPE too high: {epe.mean()}"
 
 
-@pytest.mark.parametrize("fused", ["0", "1"])
-def test_fused_family_scan_flow_labels_exact(pair, fused, monkeypatch):
-    """Both XLA paths on the 2D-label (flow) side: the fused family
-    scan with make_neighbor_min_2d (default) and the per-direction loop
-    must match the per-direction golden aggregation exactly (the
-    stereo-path fused test alone would miss a label-grid regression)."""
-    monkeypatch.setenv("FSGM_XLA_FUSED", fused)
+@pytest.mark.parametrize("impl", ["family_scan", "per_direction", "kernel"])
+def test_fused_family_scan_flow_labels_exact(pair, impl):
+    """Every aggregation on the 2D-label (flow) side — the fused family
+    scan with make_neighbor_min_2d, the sum of per-direction scans and
+    the GPU kernel with its label-grid neighbours — must match the
+    per-direction golden aggregation exactly (the stereo-path tests alone
+    would miss a label-grid regression)."""
     img1, img2, _ = pair
     p = FlowParams(search_radius=2, levels=1, p1=7, p2=60)
     gold_cen1 = gs.census_transform(img1)
@@ -157,8 +160,19 @@ def test_fused_family_scan_flow_labels_exact(pair, fused, monkeypatch):
         jnp.zeros(img1.shape, jnp.int32), jnp.zeros(img1.shape, jnp.int32),
         p.search_radius)
     nm = agg.make_neighbor_min_2d(p.search_radius)
-    s = agg.aggregate_paths(cost, jnp.asarray(img1), DIRS_8, p.p1, p.p2,
-                            p.adaptive_p2, neighbor_min=nm)
+    img = jnp.asarray(img1)
+    if impl == "family_scan":
+        s = agg.aggregate_paths(cost, img, DIRS_8, p.p1, p.p2,
+                                p.adaptive_p2, neighbor_min=nm)
+    elif impl == "per_direction":
+        s = sum(agg.aggregate_one_path(cost, img, r, p.p1, p.p2,
+                                       p.adaptive_p2, nm).astype(jnp.int32)
+                for r in DIRS_8)
+    else:
+        from fsgm_tpu.ops import aggregate_triton
+        s = aggregate_triton.aggregate_paths(
+            cost, img, DIRS_8, p.p1, p.p2, p.adaptive_p2,
+            label_ext=p.window_extent, interpret=True)
     np.testing.assert_array_equal(np.asarray(s).astype(np.int64), gold_s)
 
 
@@ -219,7 +233,7 @@ def test_flow_sequence_tracks_beyond_search_range():
     assert np.mean(err_blank <= 1.0) < 0.5, err_blank.mean()
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_tr"])
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("mode", ["half", "full"])
 def test_flow_fb_grid_half_parity(pair, backend, mode):
     # fb_grid='half' runs the FB check itself on the half grid (tolerance
@@ -268,55 +282,23 @@ def test_warp_census_blocked_matches_general():
         np.testing.assert_array_equal(got[ok], want[ok])
 
 
-def test_flow_extract_kernel_matches_xla(monkeypatch):
-    """FSGM_FLOW_EXTRACT=kernel (the fused Pallas label-reduction pass,
-    an opt-in negative result) == the default XLA reductions, bit-exact
-    end-to-end."""
-    import jax
-    import numpy as np
-    import jax.numpy as jnp
-    from fsgm_tpu.params import FlowParams
-    from fsgm_tpu.models.flow import flow_fsgm
-    from fsgm_tpu.io.synthetic import constant_flow_pair
-
-    fp = FlowParams(search_radius=2, levels=3, p1=7, p2=100,
-                    fb_backward="half")
-    a, b, _ = constant_flow_pair(48, 72, 2, -1, seed=1)
-    a, b = jnp.asarray(a), jnp.asarray(b)
-    monkeypatch.setenv("FSGM_FLOW_EXTRACT", "kernel")
-    f1, v1 = flow_fsgm(a, b, fp, "pallas")
-    jax.clear_caches()           # env read at trace time
-    monkeypatch.setenv("FSGM_FLOW_EXTRACT", "xla")
-    f2, v2 = flow_fsgm(a, b, fp, "pallas")
-    jax.clear_caches()
-    assert (np.asarray(f1) == np.asarray(f2)).all()
-    assert (np.asarray(v1) == np.asarray(v2)).all()
-
-
-def test_flow_fsgm_batch_matches_stacked_singles(monkeypatch):
-    """flow_fsgm_batch == stacking flow_fsgm over the batch, for every
-    chunking regime (b==1 no-vmap path, chunked lax.map, whole-batch
-    vmap) — the worker-crash mitigation paths (NOTES-PERF) are
-    math-identical."""
-    import numpy as np
-    import jax.numpy as jnp
-    from fsgm_tpu.params import FlowParams
-    from fsgm_tpu.models.flow import flow_fsgm, flow_fsgm_batch
-    from fsgm_tpu.io.synthetic import constant_flow_pair
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("batch", [1, 3])
+def test_flow_fsgm_batch_matches_stacked_singles(backend, batch):
+    """flow_fsgm_batch (one vmap over the batch; on the kernel backend the
+    frames become a grid axis of each sweep) == stacking flow_fsgm."""
+    from fsgm_tpu.models.flow import flow_fsgm_batch
 
     fp = FlowParams(search_radius=2, levels=2, p1=7, p2=100,
                     fb_backward="half")
-    pairs = [constant_flow_pair(24, 40, 1, -1, seed=s) for s in range(3)]
+    pairs = [constant_flow_pair(24, 40, 1, -1, seed=s)
+             for s in range(batch)]
     a = jnp.asarray(np.stack([p[0] for p in pairs]))
     b = jnp.asarray(np.stack([p[1] for p in pairs]))
-    ref_f, ref_v = zip(*[flow_fsgm(a[i], b[i], fp, "pallas")
-                         for i in range(3)])
-    ref_f = np.stack([np.asarray(x) for x in ref_f])
-    ref_v = np.stack([np.asarray(x) for x in ref_v])
-    for chunk in (1, 2, 3):
-        fl, va = flow_fsgm_batch(a, b, fp, "pallas", chunk=chunk)
-        assert (np.asarray(fl) == ref_f).all(), chunk
-        assert (np.asarray(va) == ref_v).all(), chunk
-    f1, v1 = flow_fsgm_batch(a[:1], b[:1], fp, "pallas")   # b==1 path
-    assert (np.asarray(f1)[0] == ref_f[0]).all()
-    assert (np.asarray(v1)[0] == ref_v[0]).all()
+    ref_f, ref_v = zip(*[jflow.flow_fsgm(a[i], b[i], fp, backend)
+                         for i in range(batch)])
+    fl, va = flow_fsgm_batch(a, b, fp, backend)
+    np.testing.assert_array_equal(np.asarray(fl),
+                                  np.stack([np.asarray(x) for x in ref_f]))
+    np.testing.assert_array_equal(np.asarray(va),
+                                  np.stack([np.asarray(x) for x in ref_v]))

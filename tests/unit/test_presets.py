@@ -1,14 +1,12 @@
-"""Preset <-> bench pinning + backend resolution (round-3 verdict items
-"Pin presets to reality" and "What's weak #7").
+"""Preset <-> bench pinning + backend resolution.
 
 The BASELINE configs are checked in as presets in configs/*.json
 (SURVEY.md §5 "Config / flag system"); bench.py constructs its measured
 params FROM those files (bench.py::bench_params), and these tests pin
 that the files decode into exactly the parameter objects the benchmark
-and PARITY tables describe — presets and bench can no longer drift.
+describes — presets and bench can no longer drift.
 """
 
-import os
 import sys
 from pathlib import Path
 
@@ -52,23 +50,14 @@ def test_all_presets_decode():
     ("4kflow", FlowParams(search_radius=4, levels=5, p1=7, p2=100,
                           fb_backward="half", fb_grid="half")),
 ])
-def test_bench_params_match_presets(cfg, expected, monkeypatch):
-    """bench_params(cfg) == the params the bench/PARITY tables describe.
+def test_bench_params_match_presets(cfg, expected):
+    """bench_params(cfg) == the params the bench describes.
 
-    In particular the round-3 drift — kitti_flow.json shipping
-    fb_backward="cheap" while the benchmarked default was "half" — can
+    In particular the drift of kitti_flow.json shipping
+    fb_backward="cheap" while the benchmarked default was "half" can
     never recur: the bench builds from the file and this test pins the
     file's contents."""
-    monkeypatch.delenv("FSGM_BENCH_FB", raising=False)
-    monkeypatch.delenv("FSGM_BENCH_FBGRID", raising=False)
     assert bench.bench_params(cfg) == expected
-
-
-def test_bench_flow_env_overrides(monkeypatch):
-    monkeypatch.setenv("FSGM_BENCH_FB", "full")
-    monkeypatch.setenv("FSGM_BENCH_FBGRID", "half")
-    p = bench.bench_params("flow")
-    assert p.fb_backward == "full" and p.fb_grid == "half"
 
 
 def test_flow_label_pixels_honest_accounting():
@@ -93,63 +82,25 @@ def test_flow_label_pixels_honest_accounting():
     assert bench.flow_label_pixels(h, w, cheap) == 2 * fwd * 81
 
 
-def test_bench_history_covers_all_configs():
-    import json
-    hist = json.loads((REPO / "bench_history.json").read_text())
-    assert set(hist["configs"]) == set(bench.CONFIGS)
-    for cfg, e in hist["configs"].items():
-        assert e["best_ms_frame"] > 0 and 0 < e["tolerance"] < 1, cfg
+@pytest.mark.parametrize("cfg", sorted(bench.CONFIGS))
+def test_bench_config_shapes_match_presets(cfg):
+    """Every CONFIGS row names a committed preset whose label count is
+    the row's D (stereo max_disp, flow (2r+1)^2)."""
+    h, w, d, batch = bench.CONFIGS[cfg][:4]
+    p = bench.bench_params(cfg)
+    assert h > 0 and w > 0 and batch >= 1
+    assert d == (p.num_labels if isinstance(p, FlowParams) else p.max_disp)
 
 
 def test_backend_resolution(monkeypatch):
-    """'pallas' resolves to the transposed-layout generation by default;
-    FSGM_TR=0 pins lane-major; explicit names pass through (round-3
-    verdict "What's weak #7" — the production resolution path itself)."""
-    from fsgm_tpu.models.stereo import resolve_backend
-    monkeypatch.delenv("FSGM_TR", raising=False)
-    assert resolve_backend("pallas") == "pallas_tr"
-    monkeypatch.setenv("FSGM_TR", "1")
-    assert resolve_backend("pallas") == "pallas_tr"
-    monkeypatch.setenv("FSGM_TR", "0")
-    assert resolve_backend("pallas") == "pallas"
-    for explicit in ("pallas_tr", "xla"):
+    """'auto' resolves from the platform of the default device — the
+    scan on the CPU the tests run on — and explicit names pass through
+    validated (fsgm_tpu.backend)."""
+    from fsgm_tpu.backend import resolve_backend
+    assert resolve_backend("auto") == "xla"
+    assert resolve_backend() == "xla"
+    for explicit in ("xla", "triton", "triton_interpret"):
         assert resolve_backend(explicit) == explicit
-
-
-def test_batch_fold_gate_respects_total_lanes(monkeypatch):
-    """ADVICE r3: the fold gate must bound the FOLDED lane count
-    (batch * padded height), not just the per-frame height, or a huge
-    batch widens the Pallas blocks past the VMEM ceiling."""
-    from fsgm_tpu.ops.pallas.aggregate_tr import (fold_max_lanes,
-                                                  fold_max_total_lanes)
-    assert fold_max_lanes() == 320
-    assert fold_max_total_lanes() == 8192
-    # Tsukuba batch 16 folds (the measured-win case) ...
-    assert 16 * 288 <= fold_max_total_lanes()
-    # ... a batch-64 Tsukuba run does not.
-    assert 64 * 288 > fold_max_total_lanes()
-    monkeypatch.setenv("FSGM_FOLD_MAXTOTAL", "100")
-    assert fold_max_total_lanes() == 100
-
-
-def test_scale_model_projection_schema():
-    """cli scale-test --model: the analytic ICI projection returns one
-    record per chip count with the documented fields, and the
-    BASELINE >=80% claim holds where PARITY.md says it does (4K fast
-    mode through 16 chips)."""
-    from fsgm_tpu.parallel.multihost import project_weak_scaling
-    for rows, kw in [(375, {}), (2160, dict(h=2160, w=3840, batch=4))]:
-        recs = project_weak_scaling(**kw)
-        assert [r["chips"] for r in recs] == [2, 4, 8, 16]
-        for r in recs:
-            assert 0 < r["eff_fast_pct"] <= 100
-            assert 0 < r["eff_exact_pct"] <= 100
-            assert r["halo_KB_per_family_boundary"] > 0
-    # round-5 halo calibration (3 carry units per 8-path family, not
-    # the r4 table's 2) nudges 4K fast at N=16 to 79.8%: >=80 holds
-    # through 8 chips, 16 sits at the line.  The BASELINE ">=80% at
-    # N>=2 hosts" target itself rides frame-DP (~100%, comm-free per
-    # frame); this asserts the corrected single-frame-tiling model.
-    uhd = project_weak_scaling(h=2160, w=3840, batch=4)
-    assert all(r["eff_fast_pct"] >= 80 for r in uhd if r["chips"] <= 8)
-    assert all(r["eff_fast_pct"] >= 78 for r in uhd)
+    for gone in ("pallas", "pallas_tr", "mosaic"):
+        with pytest.raises(ValueError):
+            resolve_backend(gone)

@@ -1,9 +1,9 @@
 """Property tests (SURVEY.md §4): random small images, random penalties,
 all backends agree bit-exactly with the golden oracle.
 
-hypothesis drives the shapes/penalties; the XLA path, the Pallas kernels
-(interpret mode), and the C++ oracle are each checked against golden in a
-single derandomized sweep (CI-stable).
+hypothesis drives the shapes/penalties; the XLA path, the Pallas GPU
+kernel (interpret mode), and the C++ oracle are each checked against
+golden in a single derandomized sweep (CI-stable).
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from fsgm_tpu.params import DIRS_16
 from fsgm_tpu.ops import aggregate as jagg
-from fsgm_tpu.ops.pallas import aggregate_pallas as pagg
+from fsgm_tpu.ops import aggregate_triton as kern
 
 import golden.sgm as g
 
@@ -61,9 +61,9 @@ def test_pallas_all_dirs_match_golden(prob):
     gold = np.zeros_like(cost)
     for r in DIRS_16:
         gold += g.aggregate_one_path(cost, img, r, p1, p2, adaptive)
-    ours = pagg.aggregate_paths(
+    ours = kern.aggregate_paths(
         jnp.asarray(cost, jnp.uint8), jnp.asarray(img), DIRS_16, p1, p2,
-        adaptive)
+        adaptive, interpret=True)
     np.testing.assert_array_equal(np.asarray(ours).astype(np.int64), gold)
 
 
@@ -95,59 +95,52 @@ def test_median_matches_golden(h, w, seed):
         g.median_filter_3x3(f))
 
 
-@given(st.integers(6, 40), st.integers(6, 40),
-       st.sampled_from([4, 8, 16]), st.booleans(),
-       st.integers(0, 2 ** 16))
+@given(st.integers(3, 14), st.integers(3, 16), st.integers(1, 3),
+       st.integers(1, 20), st.integers(0, 200), st.integers(0, 2 ** 16))
 @SET
-def test_cost_tr_kernels_match_xla_builder(h, w, d, rr, seed):
-    """Pallas cost builders (ops/pallas/cost_tr) == the golden-verified
-    XLA builder for random shapes, both references (round 4)."""
-    from fsgm_tpu.io.synthetic import random_dot_stereo
-    from fsgm_tpu.ops.census import census_transform
-    from fsgm_tpu.ops import cost as costmod
-    from fsgm_tpu.ops.pallas import cost_tr
-
-    il, ir, _ = random_dot_stereo(h, w, d, seed=seed)
-    cl = census_transform(jnp.asarray(il), (5, 5))
-    cr = census_transform(jnp.asarray(ir), (5, 5))
-    ref = np.asarray(costmod.cost_volume_stereo_major(
-        cl, cr, d, right_reference=rr))
-    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
-    got_h = np.asarray(cost_tr.cost_volume_hlw(cl, cr, d, 255, rr))
-    assert (got_h[:h] == ref).all() and (got_h[h:] == 0).all()
-    got_w = np.asarray(cost_tr.cost_volume_wlh(cl, cr, d, 255, rr))
-    want = np.zeros((wp, d, hp), np.uint8)
-    want[:w, :, :h] = ref.transpose(2, 1, 0)
-    assert (got_w == want).all()
-
-
-@given(st.integers(8, 40), st.sampled_from([3, 8, 16, 24, 32, 40]),
-       st.integers(0, 2 ** 16))
-@SET
-def test_diag_min_matches_reference_shear(w, nl, seed):
-    """extract_tr.diag_min_packed (the fused shear+min tree) == the
-    plain sheared-argmin reference for random volumes incl. ties
-    (round 4; the wrap-kill argument in its docstring, verified)."""
-    import jax
-    from jax.experimental import pallas as pl
-    from fsgm_tpu.ops.pallas import extract_tr
-
+def test_kernel_flow_labels_match_golden(h, w, radius, p1, p2, seed):
+    """The kernel's 2D label-grid neighbourhood (+-1 within a grid row,
+    +-(2r+1) across rows, INF-padded to a power of two) == the golden
+    flow aggregation for random shapes, radii and penalties."""
+    import golden.flow as gf
+    from fsgm_tpu.params import DIRS_8, FlowParams
     rng = np.random.default_rng(seed)
-    v = rng.integers(0, 2 ** 20, (nl, w)).astype(np.int32)
-    packed = (v << 8) | np.arange(nl, dtype=np.int32)[:, None]
+    ext = 2 * radius + 1
+    img = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    cost = rng.integers(0, 256, (h, w, ext * ext)).astype(np.int64)
+    p = FlowParams(search_radius=radius, p1=p1, p2=p2)
+    gold = gf.aggregate_paths_flow(cost, img, p)
+    ours = kern.aggregate_paths(
+        jnp.asarray(cost, jnp.uint8), jnp.asarray(img), DIRS_8, p1, p2,
+        False, label_ext=ext, interpret=True)
+    np.testing.assert_array_equal(np.asarray(ours).astype(np.int64), gold)
 
-    def kernel(p_ref, o_ref):
-        o_ref[...] = extract_tr.diag_min_packed(p_ref[...], w)
 
-    got = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((1, w), jnp.int32),
-        interpret=True,
-    )(jnp.asarray(packed))
-    # reference: explicit shear with out-of-range -> KILL
-    ref = np.full(w, extract_tr.KILL, np.int64)
-    for x in range(w):
-        for dd in range(nl):
-            if x + dd < w:
-                ref[x] = min(ref[x], packed[dd, x + dd])
-    assert (np.asarray(got)[0] == ref).all()
+@given(st.integers(1, 40), st.integers(1, 40),
+       st.sampled_from(range(len(DIRS_16))))
+@SET
+def test_line_geometry_partitions_pixels(h, w, dir_idx):
+    """Every pixel lies on exactly one kernel path line, and consecutive
+    steps of a line are one direction step apart — the property that
+    lets each direction accumulate S in place with no two programs
+    touching the same pixel."""
+    r = DIRS_16[dir_idx]
+    geo = kern.line_geometry(r, h, w)
+    hits = np.zeros((h, w), np.int64)
+    for par in range(geo["a"]):
+        for k in range(geo["k0"], geo["k0"] + geo["n_lines"]):
+            prev = None
+            for t in range(geo["steps"]):
+                u = par + geo["a"] * t
+                v = k + geo["r_cross"] * t
+                if not (0 <= v < geo["n_cross"] and u < geo["n_walk"]):
+                    prev = None
+                    continue
+                if not geo["forward"]:
+                    u = geo["n_walk"] - 1 - u
+                y, x = (u, v) if geo["rows"] else (v, u)
+                hits[y, x] += 1
+                if prev is not None:
+                    assert (y - prev[0], x - prev[1]) == r
+                prev = (y, x)
+    assert (hits == 1).all()

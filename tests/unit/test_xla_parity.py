@@ -1,7 +1,9 @@
-"""Exact-parity tests: XLA (lax.scan) pipeline vs the golden NumPy oracle.
+"""Exact-parity tests: the JAX pipeline vs the golden NumPy oracle.
 
 SURVEY.md §4 unit tier: census exact, per-direction L_r exact integer match
 for all 16 directions, WTA/LR exact, subpixel/median within float tolerance.
+Aggregation cases run on both backends: the XLA scan and the GPU kernel
+(ops/aggregate_triton.py, here through the Pallas interpreter).
 """
 
 import numpy as np
@@ -14,10 +16,13 @@ from fsgm_tpu.io.synthetic import random_dot_stereo
 from fsgm_tpu.ops import census as jcensus
 from fsgm_tpu.ops import cost as jcost
 from fsgm_tpu.ops import aggregate as jagg
+from fsgm_tpu.ops import aggregate_triton as jkern
 from fsgm_tpu.ops import extract as jext
 from fsgm_tpu.models.stereo import stereo_sgm
 
 import golden.sgm as g
+
+BACKENDS = ["xla", "triton_interpret"]
 
 
 def _unpack_words_to_u64(words: np.ndarray) -> np.ndarray:
@@ -65,7 +70,7 @@ def test_cost_volume_right_exact(pair):
     np.testing.assert_array_equal(np.asarray(ours).astype(np.int64), gold)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_tr"])
+@pytest.mark.parametrize("backend", BACKENDS)
 def test_lr_reagg_pipeline_close(pair, backend):
     """lr_mode='reagg' (true right re-aggregation, SURVEY.md M3): validity
     mask exact vs golden, valid values within float tolerance, and the
@@ -82,24 +87,31 @@ def test_lr_reagg_pipeline_close(pair, backend):
     assert (gold >= 0).mean() > 0.5, "reagg LR killed too many pixels"
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("direction", DIRS_16)
 @pytest.mark.parametrize("adaptive", [False, True])
-def test_one_path_exact(pair, direction, adaptive):
+def test_one_path_exact(pair, direction, adaptive, backend):
     img_l, img_r, _ = pair
     p = SGMParams(max_disp=16, p1=7, p2=60, adaptive_p2=adaptive)
     cen_l = g.census_transform(img_l, p.census_window)
     cen_r = g.census_transform(img_r, p.census_window)
     cost = g.cost_volume_stereo(cen_l, cen_r, p.max_disp, p.invalid_cost)
     gold = g.aggregate_one_path(cost, img_l, direction, p.p1, p.p2, adaptive)
-    ours = jagg.aggregate_one_path(
-        jnp.asarray(cost, dtype=jnp.int32), jnp.asarray(img_l), direction,
-        p.p1, p.p2, adaptive)
+    if backend == "xla":
+        ours = jagg.aggregate_one_path(
+            jnp.asarray(cost, dtype=jnp.int32), jnp.asarray(img_l),
+            direction, p.p1, p.p2, adaptive)
+    else:
+        ours = jkern.aggregate_paths(
+            jnp.asarray(cost, dtype=jnp.uint8), jnp.asarray(img_l),
+            [direction], p.p1, p.p2, adaptive, interpret=True)
     np.testing.assert_array_equal(np.asarray(ours).astype(np.int64), gold,
                                   err_msg=f"dir={direction}")
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("num_paths,adaptive", [(8, False), (16, True)])
-def test_full_s_and_wta_exact(pair, num_paths, adaptive):
+def test_full_s_and_wta_exact(pair, num_paths, adaptive, backend):
     img_l, img_r, _ = pair
     p = SGMParams(max_disp=16, p1=7, p2=60, num_paths=num_paths,
                   adaptive_p2=adaptive)
@@ -107,22 +119,18 @@ def test_full_s_and_wta_exact(pair, num_paths, adaptive):
                                     return_intermediates=True)
     from fsgm_tpu.models.stereo import compute_s_volume
     s = np.asarray(compute_s_volume(jnp.asarray(img_l), jnp.asarray(img_r),
-                                    p)).astype(np.int64)
+                                    p, backend)).astype(np.int64)
     np.testing.assert_array_equal(s, inter["S"])
     d_int = np.asarray(jext.wta(jnp.asarray(s, dtype=jnp.int32)))
     np.testing.assert_array_equal(d_int.astype(np.int64), inter["d_int"])
 
 
-@pytest.mark.parametrize("fused", ["0", "1"])
+@pytest.mark.parametrize("impl", ["family_scan", "per_direction", "kernel"])
 @pytest.mark.parametrize("num_paths,adaptive", [(8, False), (16, True)])
-def test_fused_family_scan_exact(pair, num_paths, adaptive, fused,
-                                 monkeypatch):
-    """Both XLA aggregation paths — the family-fused lax.scan (default
-    after the 2026-08-18 TPU A/B; see ops/aggregate.py) and the
-    per-direction loop (FSGM_XLA_FUSED=0) — must stay bit-exact vs
-    golden S."""
-    import fsgm_tpu.ops.aggregate  # noqa: F401 — env read at call time
-    monkeypatch.setenv("FSGM_XLA_FUSED", fused)
+def test_fused_family_scan_exact(pair, num_paths, adaptive, impl):
+    """Every way S is summed — the family-fused lax.scan, the sum of
+    per-direction scans (aggregate_one_path, the tiled carry API) and the
+    GPU kernel — must stay bit-exact vs golden S."""
     img_l, img_r, _ = pair
     p = SGMParams(max_disp=16, p1=7, p2=60, num_paths=num_paths,
                   adaptive_p2=adaptive)
@@ -133,17 +141,29 @@ def test_fused_family_scan_exact(pair, num_paths, adaptive, fused,
     cl = census_transform(jnp.asarray(img_l), p.census_window)
     cr = census_transform(jnp.asarray(img_r), p.census_window)
     cost = cost_volume_stereo(cl, cr, p.max_disp, p.invalid_cost)
-    s = agg.aggregate_paths(cost, jnp.asarray(img_l), p.dirs, p.p1, p.p2,
-                            p.adaptive_p2)
+    img = jnp.asarray(img_l)
+    if impl == "family_scan":
+        s = agg.aggregate_paths(cost, img, p.dirs, p.p1, p.p2,
+                                p.adaptive_p2)
+    elif impl == "per_direction":
+        s = sum(agg.aggregate_one_path(cost, img, r, p.p1, p.p2,
+                                       p.adaptive_p2).astype(jnp.int32)
+                for r in p.dirs)
+    else:
+        s = jkern.aggregate_paths(cost, img, p.dirs, p.p1, p.p2,
+                                  p.adaptive_p2, s_max=p.s_invalid,
+                                  interpret=True)
     np.testing.assert_array_equal(np.asarray(s).astype(np.int64),
                                   inter["S"])
 
 
-def test_full_pipeline_close(pair):
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_full_pipeline_close(pair, backend):
     img_l, img_r, _ = pair
     p = SGMParams(max_disp=16, p1=7, p2=60)
     gold_disp = g.sgm_stereo(img_l, img_r, p)
-    ours = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p))
+    ours = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p,
+                                 backend))
     # subpixel is float32 vs float64; invalid pattern must match exactly
     np.testing.assert_array_equal(ours < 0, gold_disp < 0)
     both = (ours >= 0)
@@ -176,12 +196,14 @@ def test_median_exact(rng):
     np.testing.assert_array_equal(ours, gold)
 
 
-def test_accuracy_on_stereogram():
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_accuracy_on_stereogram(backend):
     """SURVEY.md §4: SGM must achieve ~0 interior error on a random-dot
     stereogram with known integer disparity."""
     img_l, img_r, gt = random_dot_stereo(96, 128, 24, seed=3)
     p = SGMParams(max_disp=24, p1=7, p2=40)
-    disp = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p))
+    disp = np.asarray(stereo_sgm(jnp.asarray(img_l), jnp.asarray(img_r), p,
+                                 backend))
     valid = disp >= 0
     err = np.abs(disp - gt)
     bad = (err > 1.0) & valid

@@ -1,4 +1,4 @@
-"""Microbench fb_check gather variants on the real TPU.
+"""Microbench fb_check gather variants on the device.
 
 The FB consistency gather (backward flow sampled at forward-displaced
 positions) is a true dynamic (H, W) gather — the one stage of the flow

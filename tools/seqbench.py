@@ -1,9 +1,8 @@
 """Sequence-mode throughput: tracked pairs vs from-scratch pairs.
 
-Measures wall-clock per pair (including the per-dispatch relay cost —
-sequence pairs are serially dependent through the temporal prior, so
-dispatch cannot be batched away; this is the number a video consumer
-sees) for:
+Measures wall-clock per pair (including the per-dispatch cost — sequence
+pairs are serially dependent through the temporal prior, so dispatch
+cannot be batched away; this is the number a video consumer sees) for:
 
   scratch  every pair independently (flow_fsgm, no temporal prior),
            `levels` pyramid — the per-pair CLI baseline
@@ -22,7 +21,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -35,7 +33,7 @@ def main() -> None:
     ap.add_argument("--track-levels", dest="track_levels", type=int,
                     default=2)
     ap.add_argument("--radius", type=int, default=4)
-    ap.add_argument("--backend", default="pallas")
+    ap.add_argument("--backend", default="auto")
     args = ap.parse_args()
 
     import jax
@@ -65,13 +63,12 @@ def main() -> None:
                           fr, p, args.backend)),
                       ("tracked", lambda fr: flow_sequence(
                           fr, p, args.backend, track_params=tp))):
+        fr = jnp.asarray(frames_np)
         for rep in range(3):
-            # new salt per rep so the relay cannot memoize
-            fr = jnp.asarray(frames_np) ^ np.uint8(rep + 1)
             t0 = time.perf_counter()
-            flows, valids = run(fr)
-            err = float(jnp.mean(jnp.abs(flows[-1][..., 0] - 3)))
+            flows, valids = jax.block_until_ready(run(fr))
             dt = time.perf_counter() - t0
+            err = float(jnp.mean(jnp.abs(flows[-1][..., 0] - 3)))
             if rep == 2:
                 n = args.frames - 1
                 print(f"{name:8s} {1e3 * dt / n:8.2f} ms/pair wall "
