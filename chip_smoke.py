@@ -17,9 +17,11 @@ Phases:
   golden  exact integer parity with the NumPy oracle at reduced size
           (64x136 D=32, 8 paths and 16 paths with adaptive P2, a batch of
           3, a 48x64 flow pair) on every aggregation backend; kernel vs
-          XLA scan S bit-exact at full KITTI and 4K size.
-  cpp     the C++ oracle (golden/cpp) against the kernel at full KITTI
-          size; needs make and a C++ compiler.
+          XLA scan S bit-exact on flow label grids up to r=8 and at full
+          KITTI and 4K size.
+  cpp     builds the C++ oracle (golden/cpp) with make and checks the
+          kernel's S against it at full KITTI size; a failed build fails
+          the phase.
   serve   KITTI-size PNG pairs through `python -m fsgm_tpu.cli serve`,
           outputs read back and checked against ground truth.
   full    stereo_sgm_batch at the kitti16 and 4k bench shapes and
@@ -143,7 +145,9 @@ def phase_golden() -> None:
     from fsgm_tpu.models.flow import flow_fsgm
     from fsgm_tpu.models.stereo import (compute_s_volume, stereo_sgm,
                                         stereo_sgm_batch)
-    from fsgm_tpu.params import FlowParams, SGMParams, load_preset
+    from fsgm_tpu.ops import aggregate as agg
+    from fsgm_tpu.ops import aggregate_triton
+    from fsgm_tpu.params import DIRS_8, FlowParams, SGMParams, load_preset
 
     backends = ("xla", "triton")
     img_l, img_r, _ = random_dot_stereo(64, 136, 32, seed=5)
@@ -190,6 +194,24 @@ def phase_golden() -> None:
                 f"flow != golden ({be})")
         _say(f"golden flow 48x64 {be}: validity exact, flow within {ATOL}")
 
+    # label grids whose +-(2r+1) shift is wider than the smallest pad
+    rng = np.random.default_rng(6)
+    for radius in (4, 8):
+        ext = 2 * radius + 1
+        cost = jnp.asarray(rng.integers(0, 256, (48, 64, ext * ext)),
+                           jnp.uint8)
+        img = jnp.asarray(rng.integers(0, 256, (48, 64)), jnp.uint8)
+        want = agg.aggregate_paths(
+            cost, img, DIRS_8, 7, 60, True,
+            neighbor_min=agg.make_neighbor_min_2d(radius))
+        got = aggregate_triton.aggregate_paths(cost, img, DIRS_8, 7, 60,
+                                               True, label_ext=ext)
+        require(np.array_equal(np.asarray(got).astype(np.int64),
+                               np.asarray(want).astype(np.int64)),
+                f"kernel S != XLA S on the r={radius} label grid")
+        _say(f"kernel vs XLA scan, flow label grid r={radius} "
+             f"({ext * ext} labels) 48x64: S bit-exact")
+
     for name, (h, w), preset in (("kitti", (375, 1242), "kitti_stereo"),
                                  ("4k", (2160, 3840), "tiled_4k")):
         p = load_preset(str(REPO / "configs" / f"{preset}.json"))["sgm"]
@@ -205,31 +227,14 @@ def phase_golden() -> None:
     _say(f"golden phase peak device memory {_peak_gb(jax):.2f} GB")
 
 
-def _build_cpp_oracle() -> str | None:
-    """Build golden/cpp with make (OpenMP, else single-threaded); returns
-    None when built, else why not."""
-    import shutil
-    if not shutil.which("make") or not shutil.which("g++"):
-        return "no make or g++ on this host"
-    cpp_dir = REPO / "golden" / "cpp"
-    errors = []
-    for flags in (None, "-O2 -fPIC -std=c++17 -Wall"):
-        args = ["make", "-B", "-C", str(cpp_dir)]
-        if flags:
-            args.append(f"CXXFLAGS={flags}")
-        proc = subprocess.run(args, capture_output=True, text=True)
-        if proc.returncode == 0:
-            _say("cpp oracle built" + (" without OpenMP" if flags else ""))
-            return None
-        errors.append(proc.stderr.strip()[-600:])
-    return "make failed: " + " | ".join(errors)
-
-
 def phase_cpp() -> None:
-    why = _build_cpp_oracle()
-    if why is not None:
-        _say(f"cpp oracle: not run ({why})")
-        return
+    proc = subprocess.run(["make", "-B", "-C", str(REPO / "golden" / "cpp")],
+                          capture_output=True, text=True)
+    _say(proc.stdout.strip())
+    if proc.returncode != 0:
+        _say(proc.stderr.strip()[-3000:])
+    require(proc.returncode == 0, f"make golden/cpp exited {proc.returncode}")
+
     import numpy as np
     _jax()
     import jax.numpy as jnp

@@ -24,8 +24,9 @@ kernel walks the path lines inside the program instead:
     committed preset).
   * The label neighbours (d +- 1, or +-1 / +-(2r+1) on the flow grid) are
     read back from a per-program scratch row padded with INF on both
-    sides: the Triton lowering has no slice or roll.  The row is double
-    buffered so one barrier per step orders its store and loads.
+    sides, at least as wide as the widest shift: the Triton lowering has
+    no slice or roll.  The row is double buffered so one barrier per
+    step orders its store and loads.
   * Edge rule: the state of a line is zero until the line enters the
     image, so its first in-image pixel takes L = C, as in
     ops/aggregate.py (zero carry, invalid predecessor).  Labels padded to
@@ -49,7 +50,7 @@ from jax.experimental.pallas import triton as plgpu
 
 INF = 1 << 28          # same headroom as ops.aggregate.INF32
 BLOCK_LINES = 4        # path lines per program
-_PAD = 16              # INF pad on each side of the scratch row (>= 2r+1)
+_MIN_PAD = 16          # INF pad of the scratch row for shifts up to 16
 NUM_WARPS = 4
 
 
@@ -82,7 +83,13 @@ def line_geometry(direction: Tuple[int, int], h: int, w: int) -> dict:
             "n_lines": n_cross + span}
 
 
-def _sweep_kernel(*refs, geo, nd, ndp, p1, p2, adaptive, label_ext,
+def scratch_pad(label_ext: int | None) -> int:
+    """INF pad on each side of the scratch row: a power of two no
+    narrower than the widest label shift (1, or flow's 2r+1)."""
+    return max(_MIN_PAD, _next_pow2(label_ext or 1))
+
+
+def _sweep_kernel(*refs, geo, nd, ndp, p1, p2, adaptive, label_ext, pad,
                   accumulate, n_blocks, interpret):
     if accumulate:
         cost_ref, img_ref, _s_in, s_ref, scratch_ref = refs
@@ -99,14 +106,14 @@ def _sweep_kernel(*refs, geo, nd, ndp, p1, p2, adaptive, label_ext,
     bk = (BLOCK_LINES, ndp)
     row_idx = jnp.broadcast_to(
         jnp.arange(BLOCK_LINES, dtype=jnp.int32)[:, None], bk)
-    lane_idx = jnp.broadcast_to(lanes[None, :], bk) + _PAD
-    inf_pad = jnp.full((BLOCK_LINES, _PAD), INF, jnp.int32)
-    pad_cols = jnp.broadcast_to(jnp.arange(_PAD, dtype=jnp.int32)[None, :],
-                                (BLOCK_LINES, _PAD))
+    lane_idx = jnp.broadcast_to(lanes[None, :], bk) + pad
+    inf_pad = jnp.full((BLOCK_LINES, pad), INF, jnp.int32)
+    pad_cols = jnp.broadcast_to(jnp.arange(pad, dtype=jnp.int32)[None, :],
+                                (BLOCK_LINES, pad))
     pad_rows = jnp.broadcast_to(
-        jnp.arange(BLOCK_LINES, dtype=jnp.int32)[:, None], (BLOCK_LINES, _PAD))
+        jnp.arange(BLOCK_LINES, dtype=jnp.int32)[:, None], (BLOCK_LINES, pad))
     for buf in range(2):
-        for off in (0, _PAD + ndp):
+        for off in (0, pad + ndp):
             plgpu.store(scratch_ref.at[slot, buf, pad_rows, pad_cols + off],
                         inf_pad)
     if label_ext is not None:
@@ -190,17 +197,19 @@ def direction_sweep(cost: jnp.ndarray, img: jnp.ndarray,
     geo = line_geometry(direction, h, w)
     n_blocks = -(-geo["n_lines"] // BLOCK_LINES)
     ndp = _next_pow2(nd)
+    pad = scratch_pad(label_ext)
     grid = (nb, geo["a"], n_blocks)
     n_slots = nb * geo["a"] * n_blocks
     accumulate = s is not None
     dtype = s.dtype if accumulate else out_dtype
     kernel = functools.partial(
         _sweep_kernel, geo=geo, nd=nd, ndp=ndp, p1=p1, p2=p2,
-        adaptive=adaptive, label_ext=label_ext, accumulate=accumulate,
+        adaptive=adaptive, label_ext=label_ext, pad=pad,
+        accumulate=accumulate,
         n_blocks=n_blocks, interpret=interpret)
     out_shape = (jax.ShapeDtypeStruct(cost.shape, dtype),
                  jax.ShapeDtypeStruct((n_slots, 2, BLOCK_LINES,
-                                       ndp + 2 * _PAD), jnp.int32))
+                                       ndp + 2 * pad), jnp.int32))
     args = (cost, img) + ((s,) if accumulate else ())
     out, _scratch = pl.pallas_call(
         kernel, out_shape=out_shape, grid=grid,
@@ -239,34 +248,20 @@ def aggregate_paths(cost: jnp.ndarray, img: jnp.ndarray,
         s_max = len(dirs) * (255 + p2)
 
     @jax.custom_batching.custom_vmap
-    def run(c, g):
-        return _aggregate_batched(c[None], g[None], dirs, p1, p2,
-                                  adaptive_p2, label_ext, s_max,
-                                  interpret)[0]
-
-    def lift(axis_size, in_batched, c, g):
-        c_b, g_b = in_batched
-        if not c_b:
-            c = jnp.broadcast_to(c, (axis_size,) + c.shape)
-        if not g_b:
-            g = jnp.broadcast_to(g, (axis_size,) + g.shape)
-        return c, g
-
-    @run.def_vmap
-    def _run_vmap(axis_size, in_batched, c, g):
-        return batched(*lift(axis_size, in_batched, c, g)), True
-
-    @jax.custom_batching.custom_vmap
     def batched(c, g):
         return _aggregate_batched(c, g, dirs, p1, p2, adaptive_p2,
                                   label_ext, s_max, interpret)
 
     @batched.def_vmap
     def _batched_vmap(axis_size, in_batched, c, g):
-        c, g = lift(axis_size, in_batched, c, g)
+        c_b, g_b = in_batched
+        if not c_b:
+            c = jnp.broadcast_to(c, (axis_size,) + c.shape)
+        if not g_b:
+            g = jnp.broadcast_to(g, (axis_size,) + g.shape)
         lead = c.shape[:2]
         out = batched(c.reshape((-1,) + c.shape[2:]),
                       g.reshape((-1,) + g.shape[2:]))
         return out.reshape(lead + out.shape[1:]), True
 
-    return run(cost, img)
+    return batched(cost[None], img[None])[0]

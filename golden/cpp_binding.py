@@ -1,7 +1,8 @@
 """ctypes binding for the C++ golden SGM oracle (golden/cpp/sgm.cpp).
 
-Builds on first use (g++ -fopenmp) — no pybind11 in this environment, and
-the C ABI + ctypes keeps the native tier dependency-free.  API mirrors
+Builds on first use with make (OpenMP where the compiler links it) — no
+pybind11 in this environment, and the C ABI + ctypes keeps the native
+tier dependency-free.  API mirrors
 golden/sgm.py; every function is bit-exact against the NumPy oracle
 (tests/unit/test_cpp_golden.py).
 """

@@ -62,11 +62,12 @@ def test_kernel_label_pad_never_wins(d):
                                   _scan(cost, img, DIRS_8, True))
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_kernel_flow_label_grid(radius, adaptive):
     """The 2D label neighbourhood of fSGM flow ((2r+1)^2 labels, 81 at
-    r=4, padded to 128) == the scan's make_neighbor_min_2d."""
+    r=4, padded to 128) == the scan's make_neighbor_min_2d.  At r=8 the
+    +-(2r+1) shift is wider than the smallest scratch pad."""
     ext = 2 * radius + 1
     cost, img = _problem(11, 14, ext * ext, seed=radius, cmax=256)
     nm = agg.make_neighbor_min_2d(radius)
@@ -117,6 +118,12 @@ def test_kernel_vmap_broadcasts_unbatched_operand(batched):
         want = [_scan(c[0], g[i], DIRS_8, True) for i in range(2)]
     np.testing.assert_array_equal(np.asarray(got).astype(np.int32),
                                   np.stack(want))
+
+
+@pytest.mark.parametrize("label_ext,pad", [(None, 16), (9, 16), (16, 16),
+                                           (17, 32), (33, 64)])
+def test_scratch_pad_covers_widest_shift(label_ext, pad):
+    assert kern.scratch_pad(label_ext) == pad
 
 
 @pytest.mark.parametrize("s_max,dtype", [(100, jnp.uint16),

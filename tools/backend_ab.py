@@ -4,6 +4,8 @@ For each bench.py config, runs bench.py once per backend — one process at
 a time, the backend order alternating from config to config — with a
 profiler trace, and writes one JSON line per run: bench.py's record plus
 the device time per layer from the trace (utils/profiling.layer_times).
+Its summary lines give the traced device time per layer per frame and
+the device's idle share of the traced window.
 
     python tools/backend_ab.py [--configs kitti flow] [--out ab.jsonl]
 """
@@ -65,11 +67,14 @@ def main() -> None:
                     Path(args.hlo_out).mkdir(parents=True, exist_ok=True)
                     (Path(args.hlo_out) / f"{cfg}_{be}.hlo.txt").write_text(
                         hlo.read_text())
-                layers = {k: round(v, 3) for k, v in
-                          rec.get("trace", {}).get("layers_ms", {}).items()}
+                tr = rec.get("trace", {})
+                layers = {k: round(v / rec["batch"], 3) for k, v in
+                          sorted(tr.get("layers_ms", {}).items())}
                 print(f"{cfg:8s} {be:7s} {rec['ms_per_frame']:9.3f} "
                       f"ms/frame q1-q3 {rec['ms_per_frame_q1_q3']} "
-                      f"layers_ms(batch) {layers}", flush=True)
+                      f"traced ms/frame {layers} busy "
+                      f"{tr.get('busy_ms', 0.0) / rec['batch']:.3f} idle "
+                      f"share {tr.get('idle_share', 0.0):.4f}", flush=True)
 
 
 if __name__ == "__main__":
